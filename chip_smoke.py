@@ -16,13 +16,32 @@ phase, and fail on the first phase that fails.
    runs, the roofline bound of ``roofline/kernel_model.py`` with this
    data's hit count, the plain version's median.
 4. The streamed sweep at those geometries (8 chunks): its time with kernel
-   timing on and off, and a ``torch.profiler`` trace of it, read for how
-   much of the host-to-device copy time the kernels hide.
+   timing on and off, a ``torch.profiler`` trace of it, read for how much
+   of the host-to-device copy time the kernels hide, and its bound (K3):
+   the sum of the 8 chunks' bounds with each chunk's hit count.
 5. The main path at full size: ``minority_report_dense`` on the same DB,
    dense, streamed in 8 chunks, and with the plain version; identical
    rules, and the kernel's launch counter read around each run.
 6. ``repro_torch.launch.mine --verify`` at 200,000 rows against the host
    oracle.
+7. The tensor-core kernel (K2, ``accum="mxu_f32"``) against its plain
+   version (``torch.equal``): phase 2's shapes in plain and accumulate
+   mode, full-range int32 weights against K1's plain version, launch knobs,
+   the near-2^24 case, and the three main-path geometries.
+8. K2's timing at the main-path geometries beside K1's from phase 3, its
+   bound (``kernel_model.py`` with ``accum="mxu_f32"``) and its plain
+   version's.
+9. The autotune sweep on the card: ``repro_torch.launch.autotune --preset
+   main`` into ``build/autotune/``, every candidate's time, the table's
+   round trip through the loader and the derived chooser thresholds.
+10. The tuned main path at 1,000,000 rows: ``minority_report_dense`` under
+    the swept table, then dense and streamed under a table pinned to
+    ``mxu_f32`` at every bucket the mine touches; the same rules as phase 5,
+    and the per-route launch counters read around each run.
+11. The chooser and the GFP hybrid: ``backend_for_db``'s verdict and traits
+    on the 1M-row DB, ``gfp_mine_frequent`` equal to the dense backend's
+    frequent set, and the launcher's ``--backend auto --verify`` and
+    ``--backend gfp --verify`` at 200,000 rows against the host oracle.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -32,6 +51,7 @@ import contextlib
 import io
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -146,7 +166,7 @@ def main() -> int:
     from repro_torch.kernels.itemset_count import ops
     from repro_torch.kernels.itemset_count.ops import (itemset_counts,
                                                        itemset_counts_into)
-    from repro_torch.roofline import kernel_model
+    from repro_torch.roofline import autotune, kernel_model
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -167,10 +187,18 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     tb = time.perf_counter()
     ops.build()
-    print(f"   nvcc build of itemset_count.cu: "
-          f"{_build.BUILD_SECONDS.get('itemset_count', 0.0):.3f} s "
-          f"(load {time.perf_counter() - tb:.3f} s) -> "
-          f"{_build.library_path(ops.SOURCE).relative_to(ROOT)}")
+    for src in (ops.SOURCE, ops.SOURCE_MXU):
+        log = _build.BUILD_LOGS.get(src.stem, "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
+        print(f"   nvcc build of {src.name}: "
+              f"{_build.BUILD_SECONDS.get(src.stem, 0.0):.3f} s -> "
+              f"{_build.library_path(src).relative_to(ROOT)}; ptxas: "
+              f"{len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers, {spills} spill bytes")
+    print(f"   both built in parallel and loaded in "
+          f"{time.perf_counter() - tb:.3f} s")
+    autotune.set_active_table(None)      # untuned until phase 9
     _done(t0)
 
     # ---- 2. kernel against its plain version --------------------------------
@@ -304,6 +332,15 @@ def main() -> int:
     trace_dir.mkdir(parents=True, exist_ok=True)
     for (label, tgt_d), pl in zip(tgts, per_launch):
         tgt_h = tgt_d.cpu().numpy()
+        # K3's bound: the 8 chunk launches' bounds, each with its hit count
+        k3_bound = 0.0
+        for s0 in range(0, u, STREAM_CHUNK_ROWS):
+            txc = tx_d[s0:s0 + STREAM_CHUNK_ROWS]
+            hits_c = int(itemset_counts(txc, tgt_d, ones[s0:s0 + len(txc)],
+                                        use_kernel=False).sum())
+            k3_bound += kernel_model.predicted_seconds(
+                txc.shape[0], pl["k"], w_words, 2, hits=hits_c) * 1e3
+        pl["k3_bound_ms"] = k3_bound
 
         def sweep():
             return streaming_counts(ub, tgt_h, uw, chunk_rows=STREAM_CHUNK_ROWS,
@@ -331,10 +368,11 @@ def main() -> int:
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(trace))
         kern, h2d = _device_intervals(trace)
+        pl["k3_wall_ms"] = walls[False]
         line = (f"   {label}: K={pl['k']}, {n_chunks} chunks: sweep "
                 f"{walls[True]:.3f} ms wall with kernel timing on, "
                 f"{walls[False]:.3f} ms off (median of 3; one dense launch "
-                f"{pl['ms']:.4f} ms)")
+                f"{pl['ms']:.4f} ms); K3 bound {k3_bound:.4f} ms")
         if not kern:
             print(line + "; the profiler recorded no device events: overlap "
                   "not measured")
@@ -421,6 +459,230 @@ def main() -> int:
                              "oracle")
     _done(t0)
 
+    # ---- 7. K2 against its plain version -------------------------------------
+    t0 = _phase("7. tensor-core kernel (K2, accum=mxu_f32) == plain version")
+    mxu_err = 0
+    n_mxu = 0
+
+    def check_mxu(tx, tgt, wts, label, acc0=None, want=None, **kw):
+        nonlocal mxu_err, n_mxu
+        if want is None:
+            want = itemset_counts(tx, tgt, wts, use_kernel=False,
+                                  accum="mxu_f32")
+        if acc0 is None:
+            got = itemset_counts(tx, tgt, wts, accum="mxu_f32", **kw)
+        else:
+            got = itemset_counts_into(acc0.clone(), tx, tgt, wts,
+                                      accum="mxu_f32", **kw)
+            want = acc0 + want
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        mxu_err = max(mxu_err, err)
+        n_mxu += 1
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 != plain version at {label} "
+                                 f"(max abs err {err})")
+
+    for n, k, w, c in shapes:
+        arrs = [torch.from_numpy(a).to(dev)
+                for a in _random_problem(rng, n, k, w, c)]
+        check_mxu(*arrs, f"N={n} K={k} W={w} C={c}")
+        acc0 = torch.from_numpy(
+            rng.integers(-1000, 1000, size=(k, c)).astype(np.int32)).to(dev)
+        check_mxu(*arrs, f"accumulate N={n} K={k} W={w} C={c}", acc0=acc0)
+    # every byte plane of every weight: full-range int32 weights against
+    # K1's plain version (K2 folds the planes modulo 2^32, as int32 wraps)
+    for n, k, w, c in ((5000, 100, 2, 2), (3001, 77, 5, 3), (2000, 33, 1, 1),
+                       (70001, 300, 2, 2), (4000, 50, 65, 17)):
+        tx, tgt, _ = _random_problem(rng, n, k, w, c)
+        wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c),
+                           dtype=np.int64).astype(np.int32)
+        tx, tgt, wts = [torch.from_numpy(a).to(dev) for a in (tx, tgt, wts)]
+        check_mxu(tx, tgt, wts, f"full-range weights N={n} K={k} W={w} C={c}",
+                  want=itemset_counts(tx, tgt, wts, use_kernel=False))
+    n_mxu_knobs = 0
+    for n, k, w, c in ((5000, 300, 2, 2), (4000, 70, 3, 1), (2000, 50, 65, 2),
+                       (3000, 40, 2, 5)):
+        arrs = [torch.from_numpy(a).to(dev)
+                for a in _random_problem(rng, n, k, w, c)]
+        want = itemset_counts(*arrs, use_kernel=False, accum="mxu_f32")
+        for bk, bn in itertools.product((1, 32, 96, 1024), (1, 4096)):
+            check_mxu(*arrs, f"N={n} K={k} block_k={bk} block_n={bn}",
+                      want=want, block_k=bk, block_n=bn)
+            n_mxu_knobs += 1
+    near = [np.full((8, 1), 0xFFFFFFFF, np.uint32),
+            np.array([[0], [1], [3]], np.uint32),
+            np.full((8, 1), (1 << 21) - 1, np.int32)]
+    near = [torch.from_numpy(a).to(dev) for a in near]
+    check_mxu(*near, "near 2^24")
+    if int(itemset_counts(*near, accum="mxu_f32")[0, 0]) != (1 << 24) - 8:
+        raise AssertionError("K2 near 2^24: count is not 2^24 - 8")
+    for label, tgt_d in tgts:
+        check_mxu(tx_d, tgt_d, w_d, f"{label} K={tgt_d.shape[0]}")
+        acc0 = torch.from_numpy(rng.integers(
+            -1000, 1000, size=(tgt_d.shape[0], 2)).astype(np.int32)).to(dev)
+        check_mxu(tx_d, tgt_d, w_d, f"accumulate {label}", acc0=acc0)
+    print(f"   {n_mxu} comparisons (phase 2's {len(shapes)} shapes plain and "
+          f"accumulate, 5 full-range weight shapes, {n_mxu_knobs} launch "
+          f"knob settings, near 2^24 = {(1 << 24) - 8}, the 3 main-path "
+          f"geometries plain and accumulate): equal, max abs err {mxu_err}")
+    _done(t0)
+
+    # ---- 8. K2 timing --------------------------------------------------------
+    t0 = _phase("8. K2 timing at the main-path geometries")
+    obs.configure(kernel_timing=False)
+    per_launch_mxu = []
+    for (label, tgt_d), pl in zip(tgts, per_launch):
+        k = tgt_d.shape[0]
+        ms = _time_ms(lambda: itemset_counts(tx_d, tgt_d, w_d,
+                                             accum="mxu_f32"), KERNEL_RUNS, 2)
+        plain_ms = _time_ms(
+            lambda: itemset_counts(tx_d, tgt_d, w_d, use_kernel=False,
+                                   accum="mxu_f32"), PLAIN_RUNS, 1)
+        bound_ms = kernel_model.predicted_seconds(
+            u, k, w_words, 2, accum="mxu_f32") * 1e3
+        tensor_ms = kernel_model.tensor_ops(
+            u, k, 2) / kernel_model.PEAK_INT8_TENSOR_OPS * 1e3
+        by = kernel_model.bound_by(u, k, w_words, 2, accum="mxu_f32")
+        per_launch_mxu.append(dict(geometry=label, n=u, k=k, w=w_words, c=2,
+                                   ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=by,
+                                   tensor_ms=tensor_ms, k1_ms=pl["ms"]))
+        print(f"   {label}: N={u} K={k}: K2 {ms:.4f} ms (median of "
+              f"{KERNEL_RUNS}), K1 {pl['ms']:.4f} ms (phase 3), K2/K1 "
+              f"{ms / pl['ms']:.2f}; K2 bound {bound_ms:.4f} ms ({by}; "
+              f"tensor term {tensor_ms:.4f} ms), K2/bound "
+              f"{ms / bound_ms:.2f}; plain mxu_f32 {plain_ms:.3f} ms "
+              f"(median of {PLAIN_RUNS})")
+    obs.configure(kernel_timing=True)
+    _done(t0)
+
+    # ---- 9. the autotune sweep ----------------------------------------------
+    from repro_torch.launch import autotune as launch_autotune
+
+    t0 = _phase("9. autotune sweep on the card (--preset main)")
+    kind = autotune.device_kind()
+    table_path = ROOT / "build" / "autotune" / f"{kind}.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_autotune.main(["--preset", "main", "--repeats", "3",
+                              "--out", str(table_path)])
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"   | {line}")
+    swept = autotune.load_table(str(table_path))
+    if autotune.table_to_dict(swept) != json.loads(table_path.read_text()):
+        raise AssertionError("swept table does not round-trip")
+    main_buckets = {kernel_model.geometry_bucket(*g)
+                    for g in launch_autotune.PRESETS["main"]}
+    if set(swept.entries) != main_buckets:
+        raise AssertionError(f"swept buckets {sorted(swept.entries)} != "
+                             f"{sorted(main_buckets)}")
+    for bucket, e in sorted(swept.entries.items()):
+        cands = ", ".join(f"{key} {us:.1f}" for key, us in
+                          sorted(e.candidates.items()))
+        if not any(key.endswith("mxu_f32") for key in e.candidates):
+            raise AssertionError(f"{bucket}: no mxu_f32 candidate swept")
+        print(f"   {bucket}: winner bk{e.config.block_k}/{e.config.accum} "
+              f"{e.us:.1f} us; candidates (us): {cands}; chunk candidates "
+              f"{e.chunk_candidates}; serve {e.serve_candidates}")
+    derived = autotune.derived_chooser_thresholds(swept)
+    print(f"   table {table_path.relative_to(ROOT)} round-trips; derived "
+          f"chooser thresholds: {derived or 'none (one row bucket)'}")
+    _done(t0)
+
+    # ---- 10. the tuned main path ---------------------------------------------
+    t0 = _phase("10. tuned main path at 1,000,000 rows")
+
+    def run_routes(label, **kw):
+        for key in ops.KERNEL_LAUNCHES_BY_ACCUM:
+            ops.KERNEL_LAUNCHES_BY_ACCUM[key] = 0
+        t = time.perf_counter()
+        res = minority_report_dense(
+            tx_rows, y, min_support=MAIN["min_support"],
+            min_confidence=MAIN["min_conf"], device=dev, **kw)
+        torch.cuda.synchronize()
+        by_route = dict(ops.KERNEL_LAUNCHES_BY_ACCUM)
+        print(f"   {label}: {res.engine} engine, {len(res.rules)} rules, "
+              f"launches by route {by_route}, "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+        if [astuple(r) for r in res.rules] != rules:
+            raise AssertionError(f"{label}: rules differ from phase 5")
+        return by_route
+
+    autotune.set_active_table(swept)
+    run_routes(f"swept table ({autotune.describe_active()})")
+    # mxu_f32 at every bucket the mine can touch: the whole DB and the
+    # streamed chunks (131,072 rows and the ragged last one), every K
+    pinned = {kernel_model.geometry_bucket(n, 1 << e, w_words, 2): {
+        "block_k": 128, "block_n": 512, "accum": "mxu_f32", "chunk_rows": 0,
+        "us": 1.0} for n in (u, STREAM_CHUNK_ROWS, u % STREAM_CHUNK_ROWS)
+        for e in range(3, 21)}
+    autotune.set_active_table(autotune.table_from_dict(
+        {"schema": 1, "device_kind": kind, "entries": pinned}, "<pinned>"))
+    mxu_routes = run_routes("pinned mxu_f32, dense")
+    if mxu_routes["mxu_f32"] == 0 or mxu_routes["vpu_int32"] != 0:
+        raise AssertionError(f"pinned mxu_f32 mine: launches {mxu_routes}")
+    k3_mxu = run_routes("pinned mxu_f32, streamed (K3 through K2)",
+                        streaming=True, chunk_rows=STREAM_CHUNK_ROWS)
+    if k3_mxu["mxu_f32"] != stream_launches or k3_mxu["vpu_int32"] != 0:
+        raise AssertionError(f"streamed mxu_f32 mine: launches {k3_mxu}, "
+                             f"expected {stream_launches} K2 launches")
+    print(f"   all three runs: the {len(rules)} rules of phase 5")
+    autotune.set_active_table(swept)
+    _done(t0)
+
+    # ---- 11. the chooser and the GFP hybrid ----------------------------------
+    from repro_torch.core.incremental import ceil_count
+    from repro_torch.mining import (GFPBackend, backend_for_db,
+                                    dense_mine_frequent, gfp_mine_frequent,
+                                    mine_frequent_backend)
+
+    t0 = _phase("11. chooser and GFP hybrid (swept table active)")
+    backend, choice = backend_for_db(db)
+    tr = choice.traits
+    print(f"   backend_for_db on the 1M-row DB: {choice.name} "
+          f"({choice.reason}); traits: {tr.n_rows} rows ({tr.n_unique} "
+          f"unique, dedup {tr.dedup_ratio:.3f}), density {tr.density:.3f}, "
+          f"skew {tr.skew:.2f}x, {tr.nbytes} bytes")
+    min_count = ceil_count(MAIN["min_support"] * MAIN["n"])   # the MRA's
+    t = time.perf_counter()
+    want_freq = dense_mine_frequent(db, min_count, class_column=1)
+    t_dense = time.perf_counter() - t
+    for key in ops.KERNEL_LAUNCHES_BY_ACCUM:
+        ops.KERNEL_LAUNCHES_BY_ACCUM[key] = 0
+    gfp = GFPBackend(db)
+    t = time.perf_counter()
+    got_freq = mine_frequent_backend(gfp, min_count, class_column=1)
+    torch.cuda.synchronize()
+    t_gfp = time.perf_counter() - t
+    gfp_routes = dict(ops.KERNEL_LAUNCHES_BY_ACCUM)
+    if got_freq != want_freq or not got_freq:
+        raise AssertionError("GFP hybrid frequent set != dense backend's")
+    if gfp_mine_frequent(db, min_count, class_column=1, host_rows=0) \
+            != want_freq:
+        raise AssertionError("kernel-only GFP frequent set != dense's")
+    print(f"   gfp_mine_frequent (rare class, min_count {min_count}): "
+          f"{len(got_freq)} itemsets == dense backend's ({t_dense:.3f} s); "
+          f"host_rows {gfp.host_rows}, {gfp.host_blocks} host blocks, "
+          f"{gfp.kernel_launches} kernel launches "
+          f"({gfp_routes} by route), "
+          f"{gfp.blocks_counted} blocks, {t_gfp:.3f} s")
+    for backend_name in ("auto", "gfp"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launch_mine.main(["--rows", "200000", "--items", "60", "--p-x",
+                              "0.125", "--p-y", "0.01", "--min-support",
+                              "0.01", "--backend", backend_name, "--verify"])
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"   | {line}")
+        if "itemsets identical" not in out:
+            raise AssertionError(f"launcher --backend {backend_name} did not "
+                                 "verify against the host oracle")
+    autotune.set_active_table(None)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -436,7 +698,24 @@ def main() -> int:
         "bound_by": per_launch[1]["bound_by"],
         "library_ms": None,
         "launches_streamed": stream_launches,
+        "bound_ms_streamed": sum(p["k3_bound_ms"] for p in per_launch),
         "per_launch": per_launch,
+    }, {
+        "name": "itemset_count_mxu",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/itemset_count/csrc/"
+                  "itemset_count_mxu.cu",
+        "replaces": "src/repro/kernels/itemset_count/kernel.py:53",
+        # the tuned main path under the table pinned to mxu_f32 (phase 10)
+        "launches": mxu_routes["mxu_f32"],
+        "max_abs_err": mxu_err,
+        "ms": sum(p["ms"] for p in per_launch_mxu),
+        "plain_ms": sum(p["plain_ms"] for p in per_launch_mxu),
+        "bound_ms": sum(p["bound_ms"] for p in per_launch_mxu),
+        "bound_by": per_launch_mxu[1]["bound_by"],
+        "library_ms": None,
+        "launches_streamed": k3_mxu["mxu_f32"],
+        "per_launch": per_launch_mxu,
     }]}
     print(smi)
     print(json.dumps(record))

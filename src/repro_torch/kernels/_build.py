@@ -16,16 +16,18 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+# ptxas's report of each build (registers, shared memory, spills per kernel)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -50,20 +52,37 @@ def library_path(source: Path) -> Path:
 def build(source: Path) -> Path:
     """Compile ``source`` into its hashed shared library (if not built yet)
     and return the library's path."""
-    lib = library_path(source)
-    if lib.exists():
-        return lib
+    build_all([source])
+    return library_path(source)
+
+
+def build_all(sources: Iterable[Path]) -> None:
+    """Compile every source not built yet, one ``nvcc`` each, all started
+    together; raises after all have finished if any failed."""
+    todo = [s for s in sources if not library_path(s).exists()]
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {source}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_SECONDS[source.stem] = time.perf_counter() - t0
-    return lib
+    procs = []
+    for source in todo:
+        tmp = library_path(source).with_suffix(f".{os.getpid()}.tmp")
+        procs.append((source, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for source, tmp, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {source}:\n"
+                          f"{out}\n{err}")
+            continue
+        os.replace(tmp, library_path(source))
+        BUILD_SECONDS[source.stem] = time.perf_counter() - t0
+        BUILD_LOGS[source.stem] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(source: Path) -> ctypes.CDLL:

@@ -9,9 +9,10 @@ paper-faithful host implementation when ``--verify``.  ``--device cpu``
 runs the plain PyTorch counting on the host instead of the CUDA kernel.
 
 ``--backend`` switches from the MRA pipeline (default ``mra``) to a plain
-frequent-itemset mine through a chosen counting engine: ``dense`` or
-``streaming``.  ``auto`` and ``gfp`` need the adaptive chooser and the GFP
-hybrid, which are not ported yet.
+frequent-itemset mine through a chosen counting engine: ``auto`` consults
+the adaptive chooser (``mining/chooser.py``) over measured DB traits and
+prints its decision; ``dense``/``streaming``/``gfp`` force an engine.  The
+banner names the active tuning table (``roofline/autotune.py``).
 """
 import argparse
 import sys
@@ -40,18 +41,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     choices=["mra", "auto", "dense", "streaming", "gfp"],
                     help="mra (default): the full Minority-Report pipeline; "
                          "otherwise mine frequent itemsets through the named "
-                         "engine")
+                         "engine — auto consults the adaptive chooser over "
+                         "measured DB traits")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the CUDA kernel) or cpu (the plain "
                          "PyTorch version)")
     ap.add_argument("--verify", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-
-    if args.backend in ("auto", "gfp"):
-        ap.error(f"--backend {args.backend} needs the adaptive chooser and "
-                 "the GFP hybrid, which are not ported yet (ROADMAP queue 1, "
-                 "item 3)")
 
     from .. import obs
     from .._device import resolve_device
@@ -73,6 +70,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                      else f"level {state['level']} complete")
             print(f"resuming from checkpoint {args.ckpt}: {where}, "
                   f"{len(state['frequent'])} itemsets banked")
+
+    from ..roofline import autotune
+
+    print(f"autotune: {autotune.describe_active()}")
 
     if args.backend != "mra":
         _mine_backend(tx, args, ckpt, device)
@@ -106,24 +107,33 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 def _mine_backend(tx, args, ckpt, device) -> None:
-    """Plain frequent-itemset mine through a forced counting backend."""
+    """Plain frequent-itemset mine through a chooser-selected (or forced)
+    counting backend, with the chooser's decision printed."""
     from ..core.incremental import ceil_count
-    from ..mining import (DenseBackend, DenseDB, StreamingBackend,
-                          StreamingDB, mine_frequent_backend)
+    from ..mining import (DenseDB, StreamingDB, backend_for_db,
+                          mine_frequent_backend)
 
-    if args.backend == "dense":
-        backend = DenseBackend(DenseDB.encode(tx, device=device))
-    else:
-        backend = StreamingBackend(StreamingDB.encode(
-            tx, chunk_rows=args.chunk_rows, device=device))
-    print(f"backend: {args.backend} (forced)")
+    db = DenseDB.encode(tx, device=device)
+    if args.backend == "streaming" and args.chunk_rows:
+        db = StreamingDB.from_dense(db, args.chunk_rows)
+    name = None if args.backend == "auto" else args.backend
+    backend, choice = backend_for_db(db, name=name)
+    print(f"backend: {choice.name} ({choice.reason})")
+    if choice.traits is not None:
+        t = choice.traits
+        print(f"traits: {t.n_rows} rows ({t.n_unique} unique, "
+              f"dedup {t.dedup_ratio:.2f}), density {t.density:.2f}, "
+              f"skew {t.skew:.1f}x, {t.nbytes} bytes")
 
     min_count = ceil_count(args.min_support * len(tx))
     t0 = time.time()
     frequent = mine_frequent_backend(backend, min_count, checkpoint=ckpt)
     dt = time.time() - t0
-    print(f"{args.backend} engine: {len(frequent)} frequent itemsets at "
-          f"min_count={min_count} in {dt:.2f}s")
+    launches = getattr(backend, "kernel_launches", None)
+    extra = "" if launches is None else (
+        f", {launches} kernel launches, {backend.host_blocks} host blocks")
+    print(f"{choice.name} engine: {len(frequent)} frequent itemsets at "
+          f"min_count={min_count} in {dt:.2f}s{extra}")
 
     if args.verify:
         from ..core import mine_frequent

@@ -36,13 +36,18 @@ here:
       ``None`` means level 1 is counted through ``counts`` like any level.
 
   ``traits() -> Optional[DatasetTraits]``
-      Measured dataset characteristics for the adaptive backend chooser.
-      Every backend returns ``None`` until the chooser is ported.
+      Measured dataset characteristics
+      (:class:`~repro_torch.mining.chooser.DatasetTraits`: row count,
+      footprint, density, item skew, dedup ratio) for the adaptive backend
+      chooser, taken on host copies of the rows.  ``None`` means the engine
+      cannot cheaply inspect its rows.
 
 plus ``vocab`` / ``n_rows`` / ``n_classes`` / ``nbytes`` for introspection.
 
 This module implements the protocol for the dense and streaming engines;
-the mesh-distributed backend arrives with the distributed runtime.
+the GFP hybrid lives in ``mining/gfp_backend.py`` and ``mining/chooser.py``
+picks among the three.  The mesh-distributed backend arrives with the
+distributed runtime.
 """
 from __future__ import annotations
 
@@ -128,6 +133,10 @@ class DenseBackend(CountBackend):
     def chunk_signature(self) -> dict:
         return {"backend": "dense", "n_rows": int(self.db.bits.shape[0])}
 
+    def traits(self):
+        from .chooser import DatasetTraits
+        return DatasetTraits.of_db(self.db)
+
     def item_counts(self) -> np.ndarray:
         """Level-1 shortcut: per-item counts from host column sums (exact,
         no kernel launch — the same integers the kernel would produce)."""
@@ -155,7 +164,7 @@ class StreamingBackend(CountBackend):
 
     def __init__(self, db: StreamingDB, *, use_kernel: bool = True,
                  accum: Optional[str] = None):
-        # accum=None takes the kernel's compiled-in default
+        # accum=None defers to the tuning-table resolution in the kernel seam
         self.db = db
         self.use_kernel = use_kernel
         self.accum = accum
@@ -176,6 +185,10 @@ class StreamingBackend(CountBackend):
         # existing on-disk partials stay resumable
         return {"chunk_rows": self.db.chunk_rows,
                 "n_rows": int(self.db.bits.shape[0])}
+
+    def traits(self):
+        from .chooser import DatasetTraits
+        return DatasetTraits.of_db(self.db)
 
     def counts(self, masks, *, start_chunk=0, init=None, on_chunk=None):
         rows = streaming_counts(

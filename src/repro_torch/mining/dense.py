@@ -59,8 +59,10 @@ def _resolve_streaming(db, streaming: Optional[bool],
 def _count_block(db, masks: np.ndarray, *, use_kernel: bool, streaming: bool,
                  chunk_rows: Optional[int]) -> np.ndarray:
     """(K, C) host counts for one target batch on either engine
-    (bit-identical).  Block shapes and, for None ``chunk_rows``, the chunk
-    size take the compiled-in defaults of the kernel seam."""
+    (bit-identical).  No block shape is pinned here: the kernel seam and the
+    streaming sweep resolve block_k/block_n/accum (and, for None
+    ``chunk_rows``, the chunk size) through the active tuning table
+    (``roofline.autotune.resolve_launch_config``)."""
     if streaming:
         if isinstance(db, StreamingDB):
             return _host(db.counts(masks, use_kernel=use_kernel,

@@ -85,13 +85,26 @@ def choose_chunk_rows(n_words: int, n_classes: int, *,
                       n_rows: Optional[int] = None) -> int:
     """Rows per streamed chunk so one buffer (bits + weights) fits the budget.
 
-    The staging-budget heuristic, aligned to ``align`` rows.  When the caller
-    knows the total row count (``n_rows``) the result is CLAMPED to the
-    align-rounded row count, so a small DB is swept as one chunk of its own
-    size rather than a budget-sized staging buffer."""
+    When the caller knows the total row count (``n_rows``), the active tuning
+    table gets first say: a sweep-measured ``chunk_rows`` for this geometry
+    bucket overrides the staging-budget heuristic, aligned down to ``align``.
+    The bucket is looked up at the nominal K
+    ``autotune.TABLE_LOOKUP_BLOCK_K`` (256), as the JAX package looks it up
+    under its default block_k, so one table gives both packages the same
+    chunk size.
+
+    Either source is CLAMPED to the align-rounded row count, so a small DB
+    is swept as one chunk of its own size rather than a budget-sized (or
+    bigger bucket's tuned) chunk."""
     cap = None
     if n_rows is not None and n_rows > 0:
         cap = max(align, -(-int(n_rows) // align) * align)
+        from ..roofline import autotune
+        tuned = autotune.resolve_launch_config(
+            n_rows, autotune.TABLE_LOOKUP_BLOCK_K, n_words,
+            n_classes).chunk_rows
+        if tuned is not None and tuned > 0:
+            return min(cap, max(align, (int(tuned) // align) * align))
     row_bytes = 4 * (max(1, n_words) + max(1, n_classes))
     rows = budget_bytes // row_bytes
     rows = max(align, (rows // align) * align)

@@ -55,6 +55,15 @@ def _host(a) -> np.ndarray:
     return np.require(a, requirements=["C", "W"])
 
 
+def _db_device(db) -> Optional[torch.device]:
+    """The device a DB counts on: a StreamingDB's ``device``, a DenseDB's
+    tensors'; None (the card, by default) for host arrays."""
+    dev = getattr(db, "device", None)
+    if dev is None and isinstance(getattr(db, "bits", None), torch.Tensor):
+        dev = db.bits.device
+    return dev
+
+
 def streaming_counts(
     tx_bits,                      # (N, W) uint32 (host array or tensor)
     tgt_bits,                     # (K, W) uint32

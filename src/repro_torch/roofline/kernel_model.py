@@ -25,6 +25,15 @@ at W = C = 2 that is three times the work.)
 
 Predicted launch time is the perfect-overlap roofline bound
 ``max(bytes/HBM_BW, ops/PEAK_INT32_OPS)`` with the H100 SXM constants below.
+
+``accum="mxu_f32"`` (K2, ``csrc/itemset_count_mxu.cu``) moves the weighted
+reduction to the tensor cores as an int8 product over the weights' 4 byte
+planes: the integer pipe keeps the containment test (N*K*W, no per-hit
+adds), and the tensor cores do ``2*N*K*4C`` int8 operations.  Its bound is
+the larger of the two times (and of the bytes): at the main-path level 3
+(N = 969,130, K = 34,220, W = C = 2) about 3.97 ms of containment against
+0.27 ms of tensor work, so K2's bound is essentially K1's.
+
 ``record_launch`` publishes measured device time against that prediction
 into the telemetry registry (``repro_torch.obs``), so a run reports a
 measured-vs-predicted efficiency ratio per geometry.
@@ -39,14 +48,21 @@ Constants (NVIDIA H100 SXM, at the full 700 W power limit):
     is the card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``
     reads 1980 MHz on the H100 SXM).  A card set below 700 W clocks lower
     under load, so the bound is optimistic there.
+  * ``PEAK_INT8_TENSOR_OPS`` = 1.979e15 op/s, the published dense int8
+    tensor-core rate of the H100 SXM (NVIDIA's data sheet, without
+    sparsity).
 """
 from __future__ import annotations
+
+import re
+from typing import Tuple
 
 HBM_BW = 3.35e12                          # B/s
 SM_COUNT = 132
 INT32_LANES_PER_SM = 64
 MAX_SM_CLOCK_HZ = 1.98e9
 PEAK_INT32_OPS = SM_COUNT * INT32_LANES_PER_SM * MAX_SM_CLOCK_HZ  # op/s
+PEAK_INT8_TENSOR_OPS = 1.979e15           # op/s, dense int8 tensor cores
 
 _WORD_BYTES = 4
 
@@ -58,18 +74,34 @@ def kernel_flops(n: int, k: int, w: int, c: int, hits: int = 0) -> float:
     return float(n) * float(k) * float(w) + float(c) * float(hits)
 
 
+def tensor_ops(n: int, k: int, c: int) -> float:
+    """Int8 tensor-core operations of K2's reduction: a (K, N) x (N, 4C)
+    product, two operations per multiply-add."""
+    return 2.0 * float(n) * float(k) * 4.0 * float(c)
+
+
 def kernel_bytes(n: int, k: int, w: int, c: int) -> float:
     """HBM traffic of one sweep: bitmap + weights + targets + result."""
     return _WORD_BYTES * (float(n) * w + float(n) * c
                           + float(k) * w + float(k) * c)
 
 
+def _times(n: int, k: int, w: int, c: int, hits: int, accum: str):
+    """(integer-pipe, tensor-core, memory) seconds of one launch."""
+    if accum == "mxu_f32":
+        return (kernel_flops(n, k, w, c) / PEAK_INT32_OPS,
+                tensor_ops(n, k, c) / PEAK_INT8_TENSOR_OPS,
+                kernel_bytes(n, k, w, c) / HBM_BW)
+    return (kernel_flops(n, k, w, c, hits) / PEAK_INT32_OPS, 0.0,
+            kernel_bytes(n, k, w, c) / HBM_BW)
+
+
 def predicted_seconds(n: int, k: int, w: int, c: int, hits: int = 0,
-                      peak_flops: float = PEAK_INT32_OPS,
-                      hbm_bw: float = HBM_BW) -> float:
-    """Perfect-overlap roofline bound for one launch on the card."""
-    return max(kernel_flops(n, k, w, c, hits) / peak_flops,
-               kernel_bytes(n, k, w, c) / hbm_bw)
+                      accum: str = "vpu_int32") -> float:
+    """Perfect-overlap roofline bound for one launch on the card.  ``hits``
+    counts only for ``vpu_int32``: K2 adds no weights on the integer
+    pipe."""
+    return max(_times(n, k, w, c, hits, accum))
 
 
 # -- geometry bucketing ------------------------------------------------------
@@ -83,6 +115,7 @@ def predicted_seconds(n: int, k: int, w: int, c: int, hits: int = 0,
 # backstops the clamp: once ``MAX_GEOMETRY_BUCKETS`` distinct buckets exist,
 # any new bucket collapses into the single ``GEOMETRY_OVERFLOW`` label.
 
+_BUCKET_RE = re.compile(r"n(\d+)_k(\d+)_w(\d+)_c(\d+)")
 _BUCKET_RANGES = ((128, 1 << 26),   # n
                   (8, 1 << 20),     # k
                   (1, 64),          # w: widest register-resident target
@@ -105,6 +138,15 @@ def geometry_bucket(n: int, k: int, w: int, c: int) -> str:
     return f"n{bn}_k{bk}_w{bw}_c{bc}"
 
 
+def bucket_shape(bucket: str) -> Tuple[int, int, int, int]:
+    """Parse ``"nN_kK_wW_cC"`` back to ``(n, k, w, c)`` (ValueError if not
+    a geometry bucket — e.g. the overflow label)."""
+    m = _BUCKET_RE.fullmatch(bucket)
+    if m is None:
+        raise ValueError(f"not a geometry bucket label: {bucket!r}")
+    return tuple(int(g) for g in m.groups())  # type: ignore[return-value]
+
+
 def _bucket_label(n: int, k: int, w: int, c: int) -> str:
     """Bucket label with the hard cardinality cap applied."""
     b = geometry_bucket(n, k, w, c)
@@ -116,11 +158,17 @@ def _bucket_label(n: int, k: int, w: int, c: int) -> str:
     return b
 
 
-def bound_by(n: int, k: int, w: int, c: int, hits: int = 0) -> str:
+def _reset_geometry_buckets() -> None:
+    """Drop the seen-bucket cap state (tests only)."""
+    _SEEN_BUCKETS.clear()
+
+
+def bound_by(n: int, k: int, w: int, c: int, hits: int = 0,
+             accum: str = "vpu_int32") -> str:
     """Which side of the roofline bounds this geometry: ``"operations"`` or
     ``"bytes"``."""
-    return ("operations" if kernel_flops(n, k, w, c, hits) / PEAK_INT32_OPS
-            >= kernel_bytes(n, k, w, c) / HBM_BW else "bytes")
+    int_s, tensor_s, mem_s = _times(n, k, w, c, hits, accum)
+    return "operations" if max(int_s, tensor_s) >= mem_s else "bytes"
 
 
 def record_launch(n: int, k: int, w: int, c: int, seconds: float) -> None:

@@ -1,11 +1,11 @@
 """The port's itemset-count wrapper against the JAX package's, on the same
 numpy inputs, with exact integer equality.
 
-On the CPU the port runs the kernel's plain PyTorch version; the JAX side
-runs its Pallas kernel in interpret mode, as its own tests do.  The CUDA
-kernel itself is compared with the plain version on the card by the
-``cuda``-marked test at the end (skipped without a card) and by
-``chip_smoke.py``.
+On the CPU the port runs the kernels' plain PyTorch versions (K1's for
+``accum="vpu_int32"``, K2's float32 product for ``accum="mxu_f32"``); the JAX
+side runs its Pallas kernel in interpret mode, as its own tests do.  The CUDA
+kernels themselves are compared with their plain versions on the card by the
+``cuda``-marked tests (skipped without a card) and by ``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +22,17 @@ from repro_torch.kernels.itemset_count import (itemset_counts,
                                                itemset_counts_ref,
                                                itemset_counts_ref_blocked)
 from repro_torch.kernels.itemset_count import ops
+from repro_torch.roofline import autotune
+
+
+@pytest.fixture(autouse=True)
+def _untuned():
+    """Pin the port's autotuner to the compiled-in defaults (``conftest.py``
+    pins the JAX package's)."""
+    autotune.set_active_table(None)
+    yield
+    autotune.set_active_table(None)
+
 
 SHAPES = [
     # (N, K, W, C, block_k, block_n) — the JAX kernel test's shape list
@@ -149,13 +160,163 @@ def test_cpu_tensor_runs_plain_version_without_launch():
     assert ops.KERNEL_LAUNCHES == before
 
 
-def test_mxu_f32_raises_not_implemented():
+def test_bogus_accum_raises_value_error():
     rng = np.random.default_rng(2)
     tx, tgt, wts = _t(*random_problem(rng, 64, 4, 2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        itemset_counts(tx, tgt, wts, accum="mxu_f32")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="bogus"):
         itemset_counts(tx, tgt, wts, accum="bogus")
+    with pytest.raises(ValueError, match="bogus"):
+        itemset_counts_into(torch.zeros((4, 2), dtype=torch.int32), tx, tgt,
+                            wts, accum="bogus")
+
+
+# -- K2: accum="mxu_f32" ------------------------------------------------------
+
+@pytest.mark.parametrize("n,k,w,c,bk,bn", SHAPES)
+def test_mxu_counts_match_jax_shapes(n, k, w, c, bk, bn):
+    rng = np.random.default_rng(n * 7 + k)
+    tx, tgt, wts = random_problem(rng, n, k, w, c)
+    want = _jax(tx, tgt, wts, block_k=bk, block_n=bn, accum="mxu_f32")
+    got = itemset_counts(*_t(tx, tgt, wts), block_k=bk, block_n=bn,
+                         accum="mxu_f32")
+    assert got.dtype == torch.int32 and tuple(got.shape) == (k, c)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("accum", ["vpu_int32", "mxu_f32"])
+def test_accum_variants_match_jax(accum):
+    rng = np.random.default_rng(11)
+    tx, tgt, wts = random_problem(rng, 1111, 77, 5, 3)
+    want = _jax(tx, tgt, wts, accum=accum, block_k=32, block_n=256)
+    got = itemset_counts(*_t(tx, tgt, wts), accum=accum, block_k=32,
+                         block_n=256)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), np.asarray(jax_ref(
+        jnp.asarray(tx), jnp.asarray(tgt), jnp.asarray(wts))))
+
+
+@pytest.mark.parametrize("n,k,w,c,bk,bn", [
+    (64, 8, 2, 2, 8, 128),
+    (1111, 77, 5, 3, 32, 256),       # multi-tile + ragged on both axes
+    (2048, 256, 4, 1, 256, 1024),    # exact blocks
+])
+def test_mxu_f32_differential_parity(n, k, w, c, bk, bn):
+    """mxu == vpu == the plain versions, in both packages."""
+    rng = np.random.default_rng(n + k)
+    tx, tgt, wts = random_problem(rng, n, k, w, c)
+    args = _t(tx, tgt, wts)
+    got_mxu = itemset_counts(*args, accum="mxu_f32", block_k=bk, block_n=bn)
+    got_vpu = itemset_counts(*args, accum="vpu_int32", block_k=bk,
+                             block_n=bn)
+    assert torch.equal(got_mxu, got_vpu)
+    assert torch.equal(got_mxu, itemset_counts_ref(*args, accum="mxu_f32"))
+    assert np.array_equal(got_mxu.numpy(), _jax(
+        tx, tgt, wts, accum="mxu_f32", block_k=bk, block_n=bn))
+
+
+def _near_2p24():
+    n = 8
+    tx = np.full((n, 1), 0xFFFFFFFF, np.uint32)      # contain every target
+    tgt = np.zeros((3, 1), np.uint32)
+    tgt[1, 0] = 1
+    tgt[2, 0] = 0b11
+    wts = np.full((n, 1), (1 << 21) - 1, np.int32)
+    return tx, tgt, wts
+
+
+def test_mxu_f32_exact_near_2p24_bound():
+    """Counts just below the 2^24 f32-exactness bound stay bit-exact; the
+    weights 2^21 - 1 have 21 significant bits, which TF32 would round."""
+    tx, tgt, wts = _near_2p24()
+    got = itemset_counts(*_t(tx, tgt, wts), accum="mxu_f32")
+    want = _jax(tx, tgt, wts, accum="mxu_f32")
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), itemset_counts(
+        *_t(tx, tgt, wts), accum="vpu_int32").numpy())
+    assert int(got[0, 0]) == (1 << 24) - 8
+
+
+def test_mxu_plain_version_turns_tf32_off_and_restores():
+    tx, tgt, wts = _t(*_near_2p24())
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("medium")
+    try:
+        got = itemset_counts_ref(tx, tgt, wts, accum="mxu_f32")
+        assert int(got[0, 0]) == (1 << 24) - 8
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+
+
+def test_mxu_f32_row_bound_raises_value_error(monkeypatch):
+    """N >= 2^24 rows per launch is refused with the geometry in the text,
+    as the JAX package refuses it, before any counting work starts."""
+    n = 1 << 24
+    tx = np.zeros((n, 1), np.uint32)
+    tgt = np.zeros((1, 1), np.uint32)
+    w = np.ones((n, 1), np.int32)
+    with pytest.raises(ValueError, match=r"N < 2\^24.*N=16777216"):
+        jax_counts(jnp.asarray(tx), jnp.asarray(tgt), jnp.asarray(w),
+                   accum="mxu_f32")
+
+    def no_counting(*a, **kw):
+        raise AssertionError("counted before the row guard")
+
+    monkeypatch.setattr(ops, "itemset_counts_ref_blocked", no_counting)
+    monkeypatch.setattr(ops, "_launch", no_counting)
+    args = _t(tx, tgt, w)
+    with pytest.raises(ValueError, match=r"N < 2\^24.*N=16777216"):
+        itemset_counts(*args, accum="mxu_f32")
+    with pytest.raises(ValueError, match=r"N < 2\^24.*N=16777216"):
+        itemset_counts_into(torch.zeros((1, 1), dtype=torch.int32), *args,
+                            accum="mxu_f32")
+
+
+@pytest.mark.parametrize("n,k,w,c", [(300, 40, 2, 2), (1000, 7, 3, 1),
+                                     (129, 65, 5, 3)])
+def test_mxu_counts_into_matches_jax(n, k, w, c):
+    rng = np.random.default_rng(n + k + 1)
+    tx, tgt, wts = random_problem(rng, n, k, w, c)
+    acc0 = rng.integers(-50, 50, size=(k, c)).astype(np.int32)
+    want = np.asarray(jax_counts_into(jnp.asarray(acc0), jnp.asarray(tx),
+                                      jnp.asarray(tgt), jnp.asarray(wts),
+                                      accum="mxu_f32"))
+    acc = torch.from_numpy(acc0.copy())
+    got = itemset_counts_into(acc, *_t(tx, tgt, wts), accum="mxu_f32")
+    assert got is acc
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_cpu_mxu_runs_plain_version_without_launch():
+    rng = np.random.default_rng(3)
+    tx, tgt, wts = _t(*random_problem(rng, 100, 10, 2, 2))
+    before = dict(ops.KERNEL_LAUNCHES_BY_ACCUM), ops.KERNEL_LAUNCHES
+    itemset_counts(tx, tgt, wts, accum="mxu_f32")
+    assert (dict(ops.KERNEL_LAUNCHES_BY_ACCUM), ops.KERNEL_LAUNCHES) == before
+
+
+def test_kernel_model_mxu_bound():
+    from repro_torch.roofline import kernel_model as km
+
+    n, k, w, c = 969130, 34220, 2, 2
+    ints = n * k * w / km.PEAK_INT32_OPS
+    tensor = 2 * n * k * 4 * c / km.PEAK_INT8_TENSOR_OPS
+    assert km.tensor_ops(n, k, c) == 2 * n * k * 4 * c
+    assert km.predicted_seconds(n, k, w, c, accum="mxu_f32") == max(
+        ints, tensor, km.kernel_bytes(n, k, w, c) / km.HBM_BW)
+    # about 3.97 ms of containment against 0.27 ms of tensor work
+    assert 3.9e-3 < ints < 4.0e-3 and 0.26e-3 < tensor < 0.28e-3
+    # hits do not enter K2's bound: its adds run on the tensor cores
+    assert km.predicted_seconds(n, k, w, c, hits=n * k, accum="mxu_f32") \
+        == km.predicted_seconds(n, k, w, c, accum="mxu_f32")
+    assert km.bound_by(n, k, w, c, accum="mxu_f32") == "operations"
+    # C >> W makes the tensor term the larger one
+    assert km.predicted_seconds(1000, 1000, 1, 64, accum="mxu_f32") == \
+        km.tensor_ops(1000, 1000, 64) / km.PEAK_INT8_TENSOR_OPS
 
 
 def test_cuda_requested_without_card_raises():
@@ -222,6 +383,68 @@ def test_cuda_kernel_matches_plain_version(n, k, w, c, bk, bn):
     acc = acc0.clone()
     itemset_counts_into(acc, tx, tgt, wts, block_k=bk, block_n=bn)
     assert torch.equal(acc, acc0 + want)
+
+
+MXU_CUDA_SHAPES = SHAPES + [
+    # ragged K (not a multiple of 16) and N (not a multiple of 32), C = 1-3,
+    # W = 1, 2, 5, 65, and a class count past one 16-class launch group
+    (33, 17, 1, 1, 16, 128), (1025, 45, 2, 2, 64, 512),
+    (999, 130, 2, 3, 128, 512), (4097, 200, 5, 1, 256, 512),
+    (777, 50, 65, 2, 32, 512), (3000, 40, 3, 17, 128, 512),
+    (70000, 300, 2, 2, 128, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,w,c,bk,bn", MXU_CUDA_SHAPES)
+def test_cuda_mxu_kernel_matches_plain_version(n, k, w, c, bk, bn):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n * 7 + k)
+    tx, tgt, wts = [t.to(dev) for t in _t(*random_problem(rng, n, k, w, c))]
+    before = ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"]
+    got = itemset_counts(tx, tgt, wts, block_k=bk, block_n=bn,
+                         accum="mxu_f32")
+    assert ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"] == before + 1
+    want = itemset_counts(tx, tgt, wts, use_kernel=False, accum="mxu_f32")
+    assert torch.equal(got, want)
+    acc0 = torch.randint(-9, 9, (k, c), dtype=torch.int32, device=dev)
+    acc = acc0.clone()
+    itemset_counts_into(acc, tx, tgt, wts, block_k=bk, block_n=bn,
+                        accum="mxu_f32")
+    assert torch.equal(acc, acc0 + want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,w,c", [(5000, 100, 2, 2), (3001, 77, 5, 3),
+                                     (2000, 33, 1, 1)])
+def test_cuda_mxu_kernel_exact_for_full_range_weights(n, k, w, c):
+    """K2 folds the byte planes modulo 2^32, so it equals K1's wrapping
+    int32 sum for any int32 weights, negative ones included — every byte of
+    every weight reaches the tensor cores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + c)
+    tx, tgt, _ = random_problem(rng, n, k, w, c)
+    wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c), dtype=np.int64
+                       ).astype(np.int32)
+    tx, tgt, wts = [t.to(dev) for t in _t(tx, tgt, wts)]
+    got = itemset_counts(tx, tgt, wts, accum="mxu_f32")
+    assert torch.equal(got, itemset_counts(tx, tgt, wts, use_kernel=False))
+    assert torch.equal(got, itemset_counts(tx, tgt, wts, accum="vpu_int32"))
+
+
+@pytest.mark.cuda
+def test_cuda_mxu_kernel_exact_near_2p24_bound():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    tx, tgt, wts = [t.to(dev) for t in _t(*_near_2p24())]
+    got = itemset_counts(tx, tgt, wts, accum="mxu_f32")
+    assert torch.equal(got, itemset_counts(tx, tgt, wts, accum="mxu_f32",
+                                           use_kernel=False))
+    assert int(got[0, 0]) == (1 << 24) - 8
 
 
 def test_kernel_timings_are_read_without_waiting_until_snapshot():

@@ -219,11 +219,23 @@ def test_launcher_verifies_on_cpu(capsys, extra):
     assert "verified against paper-faithful engine" in out
 
 
-@pytest.mark.parametrize("backend", ["auto", "gfp"])
-def test_launcher_rejects_unported_backends(backend):
-    with pytest.raises(SystemExit):
-        launch_mine.main(["--rows", "100", "--device", "cpu",
-                          "--backend", backend])
+@pytest.mark.parametrize("backend,p_x,expect", [
+    ("auto", 0.05, "backend: dense ("), ("auto", 0.15, "backend: gfp ("),
+    ("gfp", 0.15, "backend: gfp (explicitly requested)")])
+def test_launcher_backend_auto_gfp_verifies_on_cpu(capsys, backend, p_x,
+                                                   expect):
+    """``--backend auto`` prints the chooser's verdict with its traits (at
+    p_x = 0.05 the mine stays shallow and dense; at 0.15 the rows are dense
+    and compressible and go to the GFP hybrid); ``--backend gfp`` forces the
+    hybrid; each matches the host oracle."""
+    launch_mine.main(["--rows", "3000", "--items", "12", "--p-x", str(p_x),
+                      "--min-support", "0.02", "--device", "cpu", "--verify",
+                      "--backend", backend])
+    out = capsys.readouterr().out
+    assert "autotune: default launch configs (no tuning table)" in out
+    assert expect in out
+    assert ("traits: 3000 rows" in out) == (backend == "auto")
+    assert "itemsets identical" in out
 
 
 def test_reference_kernel_launches_misses_last_counted_level():
