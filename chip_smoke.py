@@ -11,14 +11,26 @@ phase, and fail on the first phase that fails.
    knobs (block_k, block_n), and the three main-path geometries on the DB
    that ``mining.dense.mra_encode`` builds from
    ``bernoulli_db(1_000_000, 60, 0.125, 0.01, seed=0)`` (N = 969,130 unique
-   rows, W = 2, C = 2, K = 1,770 / 34,220 / 1,830).
-3. Timing at the main-path geometries: kernel median over CUDA-event-timed
-   runs, the roofline bound of ``roofline/kernel_model.py`` with this
-   data's hit count, the plain version's median.
+   rows, W = 2, C = 2, K = 1,770 / 34,220 / 1,830); targets of at most 1,
+   4 and 8 items and of more than 8, W too wide for a stage in shared memory, full-range weights.
+   Then K1's layout pass (``ops.bit_slice``) against its plain version
+   (``ref.to_item_columns``, ``ref.to_weight_planes``' odd planes and live
+   masks, ``ref.heavy_rows``), bit for bit over the rows' words with the pad
+   up to whole stages zero, on
+   the same shapes and the main-path DB, so that a layout fault shows apart
+   from a counting fault.
+3. Timing at the main-path geometries: the kernel's time per call (CUDA
+   events around 7 calls back to back, median of 3 such batches), the
+   layout pass and the count kernel apart (``prep_ms`` and ``count_ms``,
+   from a ``torch.profiler`` trace), the roofline bound of
+   ``roofline/kernel_model.py`` with this data's hit count and target sizes
+   (and the horizontal model's bound beside it), the plain version's
+   median; fails if a kernel runs below its bound.
 4. The streamed sweep at those geometries (8 chunks): its time with kernel
    timing on and off, a ``torch.profiler`` trace of it, read for how much
    of the host-to-device copy time the kernels hide, and its bound (K3):
-   the sum of the 8 chunks' bounds with each chunk's hit count.
+   the sum of the 8 chunks' bounds with each chunk's hit count; fails if
+   the sweep's kernels run below it.
 5. The main path at full size: ``minority_report_dense`` on the same DB,
    dense, streamed in 8 chunks, and with the plain version; identical
    rules, and the kernel's launch counter read around each run.
@@ -91,6 +103,12 @@ def _random_problem(rng, n, k, w, c, density=0.3):
     return tx, tgt, wts
 
 
+def _target_sizes(tgt):
+    """Items per target of a (K, W) uint32 tensor."""
+    import numpy as np
+    return np.unpackbits(tgt.cpu().numpy().view(np.uint8), axis=1).sum(1)
+
+
 def _device_intervals(trace_path):
     """(kernel, host-to-device copy) intervals in microseconds from a
     ``torch.profiler`` Chrome trace."""
@@ -105,6 +123,32 @@ def _device_intervals(trace_path):
         elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
             h2d.append(span)
     return kern, h2d
+
+
+def _profiled_ms(fn, runs, trace_path, names):
+    """Device time per launch of the kernels whose names contain each of
+    ``names`` (each call launches each once), from a ``torch.profiler``
+    trace of ``runs`` calls: the mean over the launches the trace recorded
+    (the tracer may drop some); None for a name the trace has no event
+    of."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    out = {}
+    for key in names:
+        durs = [float(e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") == "kernel"
+                and key in e.get("name", "")]
+        out[key] = sum(durs) / 1e3 / len(durs) if durs else None
+    return out
 
 
 def _union(spans):
@@ -131,6 +175,25 @@ def _intersect(a, b):
         else:
             j += 1
     return out
+
+
+def _batch_ms(fn, runs, batches=3):
+    """Median over ``batches`` of the time per call of ``runs`` calls back to
+    back between two CUDA events: the device time per call wherever the
+    host enqueues faster than the device runs."""
+    import torch
+    fn()
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(runs):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / runs)
+    return statistics.median(times)
 
 
 def _time_ms(fn, runs, warmup):
@@ -166,6 +229,9 @@ def main() -> int:
     from repro_torch.kernels.itemset_count import ops
     from repro_torch.kernels.itemset_count.ops import (itemset_counts,
                                                        itemset_counts_into)
+    from repro_torch.kernels.itemset_count.ref import (heavy_rows,
+                                                       to_item_columns,
+                                                       to_weight_planes)
     from repro_torch.roofline import autotune, kernel_model
 
     dev = torch.device("cuda")
@@ -259,6 +325,53 @@ def main() -> int:
             n_knobs += 1
     print(f"   launch knobs: {n_knobs} (block_k, block_n) settings over 5 "
           f"shapes: equal")
+    # K1's other loops: wide targets (the general loop), the empty itemset, W
+    # too wide for a stage in shared memory (columns read from device
+    # memory), C in class groups; full-range int32 weights
+    n_wide = 0
+    for n, k, w, c in ((5000, 60, 3, 2), (3001, 50, 2, 5), (999, 40, 300, 2),
+                       (4000, 50, 65, 17)):
+        tx, tgt, _ = _random_problem(rng, n, k, w, c)
+        tgt[2:k // 2] = tx[:k // 2 - 2] & rng.integers(
+            0, 2 ** 32, size=(k // 2 - 2, w), dtype=np.uint32)
+        tgt[0] = 0
+        wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c),
+                           dtype=np.int64).astype(np.int32)
+        arrs = [torch.from_numpy(a).to(dev) for a in (tx, tgt, wts)]
+        for bk, bn in ((128, 512), (1, 1), (1024, 4096)):
+            got = itemset_counts(*arrs, block_k=bk, block_n=bn)
+            want = itemset_counts(*arrs, use_kernel=False)
+            if not torch.equal(got, want):
+                raise AssertionError(f"kernel != plain version at wide "
+                                     f"targets N={n} K={k} W={w} C={c} "
+                                     f"block_k={bk} block_n={bn}")
+            n_wide += 1
+        check(*arrs, f"accumulate wide targets N={n} W={w} C={c}",
+              acc0=torch.randint(-9, 9, (k, c), dtype=torch.int32,
+                                 device=dev))
+    print(f"   {n_wide} settings with targets of more than 8 items, the "
+          f"empty itemset, W = 300 and full-range weights: equal")
+    # CTAs whose largest target has 1 item (the 2-column loop), 4 or 8 items
+    # (the general loop): targets of 0 .. smax items
+    tx, _, wts = _random_problem(rng, 3000, 1, 2, 2)
+    tx |= rng.integers(0, 2 ** 32, size=tx.shape, dtype=np.uint32)
+    n_sizes = 0
+    for smax in (1, 4, 8):
+        tgt = np.zeros((200, 2), dtype=np.uint32)
+        for i in range(200):
+            for b in rng.choice(64, size=rng.integers(0, smax + 1),
+                                replace=False):
+                tgt[i, b >> 5] |= np.uint32(1) << np.uint32(b & 31)
+        arrs = [torch.from_numpy(a).to(dev) for a in (tx, tgt, wts)]
+        want = itemset_counts(*arrs, use_kernel=False)
+        for bk in (32, 128):
+            if not torch.equal(itemset_counts(*arrs, block_k=bk), want):
+                raise AssertionError(f"kernel != plain version at targets "
+                                     f"of at most {smax} items, "
+                                     f"block_k={bk}")
+            n_sizes += 1
+    print(f"   {n_sizes} settings with targets of at most 1, 4 and 8 items: "
+          f"equal")
 
     from repro_torch.data import bernoulli_db
     from repro_torch.mining.dense import mra_encode
@@ -291,33 +404,97 @@ def main() -> int:
                 np.int32)).to(dev)
         check(tx_d, tgt_d, w_d, f"accumulate {label}", acc0=acc0)
         print(f"   {label}: K={m.shape[0]} equal (plain and accumulate)")
+    print(f"   K1 == plain version: {n_checked} comparisons, max abs err "
+          f"{max_err}")
+
+    # K1's layout pass against its plain version, bit for bit
+    n_layouts = 0
+    for n, _, w, c in shapes + [(999, 0, 300, 2), (u, 0, w_words, 2)]:
+        if n == u:
+            tx, wts = tx_d, w_d
+        else:
+            tx, _, _ = _random_problem(rng, n, 1, w, c)
+            wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c),
+                               dtype=np.int64).astype(np.int32)
+            tx, wts = (torch.from_numpy(a).to(dev) for a in (tx, wts))
+        for bn in (512, 100) if n != u else (512,):
+            got = ops.bit_slice(tx, wts, block_n=bn)
+            planes, live = to_weight_planes(wts, got.stage_words)
+            want = (to_item_columns(tx), planes[:, 0], heavy_rows(planes),
+                    live)
+            words = -(-n // 32)
+            for name, g, x in zip(("columns", "odd planes", "heavy", "live"),
+                                  got, want):
+                g = g.view(torch.int32)
+                # the rows' words bit for bit; the pad up to whole stages
+                # zero (all ones in the all-ones column)
+                pad = g[..., words:] if name != "live" else g[..., :0]
+                if name == "columns":
+                    pad = torch.cat([pad[:-1].flatten(), ~pad[-1]])
+                if (not torch.equal(g[..., :x.shape[-1]], x.view(torch.int32))
+                        or pad.any()):
+                    raise AssertionError(f"layout pass != plain version: "
+                                         f"{name} at N={n} W={w} C={c} "
+                                         f"block_n={bn}")
+            n_layouts += 1
+    print(f"   layout pass == to_item_columns / to_weight_planes bit for "
+          f"bit: {n_layouts} layouts (the main-path DB included)")
     _done(t0)
 
     # ---- 3. timing -----------------------------------------------------------
     t0 = _phase("3. timing at the main-path geometries")
     obs.configure(kernel_timing=False)   # the events below time the launches
     ones = torch.ones((u, 1), dtype=torch.int32, device=dev)
+    (ROOT / "build" / "traces").mkdir(parents=True, exist_ok=True)
     per_launch = []
     for label, tgt_d in tgts:
         k = tgt_d.shape[0]
-        # contained (row, target) pairs: the data-dependent part of the work
+        # contained (row, target) pairs and the targets' sizes: the
+        # data-dependent part of the work
         hits = int(itemset_counts(tx_d, tgt_d, ones, use_kernel=False).sum())
-        ms = _time_ms(lambda: itemset_counts(tx_d, tgt_d, w_d), KERNEL_RUNS, 2)
+        sizes = _target_sizes(tgt_d)
+        ms = _batch_ms(lambda: itemset_counts(tx_d, tgt_d, w_d), KERNEL_RUNS)
+        # the layout pass and the count kernel apart, from a profiler trace
+        # (the layout pass alone through its wrapper is host-bound)
+        parts = _profiled_ms(lambda: itemset_counts(tx_d, tgt_d, w_d),
+                             KERNEL_RUNS, ROOT / "build" / "traces" /
+                             f"k1_{label.split()[0]}.json",
+                             ("layout_kernel", "count_kernel"))
+        prep_ms = parts["layout_kernel"]
+        if prep_ms is None:
+            prep_ms = _batch_ms(lambda: ops.bit_slice(tx_d, w_d),
+                                KERNEL_RUNS)
+            print(f"   {label}: the profiler recorded no layout kernel; "
+                  f"prep_ms is the layout pass's wrapper time")
         plain_ms = _time_ms(
             lambda: itemset_counts(tx_d, tgt_d, w_d, use_kernel=False),
             PLAIN_RUNS, 1)
-        bound_ms = kernel_model.predicted_seconds(u, k, w_words, 2,
-                                                  hits=hits) * 1e3
-        by = kernel_model.bound_by(u, k, w_words, 2, hits=hits)
+        bound_ms = kernel_model.predicted_seconds(
+            u, k, w_words, 2, hits=hits, target_sizes=sizes) * 1e3
+        by = kernel_model.bound_by(u, k, w_words, 2, hits=hits,
+                                   target_sizes=sizes)
+        hbound_ms = kernel_model.horizontal_seconds(u, k, w_words, 2,
+                                                    hits=hits) * 1e3
         per_launch.append(dict(geometry=label, n=u, k=k, w=w_words, c=2,
-                               hits=hits, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=by))
+                               hits=hits, ms=ms, prep_ms=prep_ms,
+                               count_ms=parts["count_kernel"],
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=by, horizontal_bound_ms=hbound_ms))
         print(f"   {label}: N={u} K={k} W={w_words} C=2, {hits} contained "
-              f"pairs: kernel {ms:.4f} ms (median of {KERNEL_RUNS}), bound "
-              f"{bound_ms:.4f} ms ({by}, "
-              f"{kernel_model.kernel_flops(u, k, w_words, 2, hits):.4e} int "
-              f"ops), plain {plain_ms:.3f} ms (median of {PLAIN_RUNS}); "
-              f"kernel/bound {ms / bound_ms:.2f}")
+              f"pairs, targets of {min(sizes)}-{max(sizes)} items: kernel "
+              f"{ms:.4f} ms (median of 3 batches of {KERNEL_RUNS} back to "
+              f"back), of which the layout pass {prep_ms:.4f} ms and the "
+              f"count kernel {parts['count_kernel'] or float('nan'):.4f} ms "
+              f"(profiled); bound {bound_ms:.4f} ms ({by}, "
+              f"{kernel_model.kernel_flops(u, k, w_words, 2, hits, sizes):.4e}"
+              f" int ops), kernel/bound {ms / bound_ms:.2f}; horizontal "
+              f"bound {hbound_ms:.4f} ms, kernel/horizontal bound "
+              f"{ms / hbound_ms:.2f}; plain {plain_ms:.3f} ms (median of "
+              f"{PLAIN_RUNS})")
+        if ms < bound_ms:
+            raise AssertionError(f"{label}: kernel {ms:.4f} ms below its "
+                                 f"bound {bound_ms:.4f} ms: the bound's "
+                                 f"count is wrong")
     print("   kernels launched by this script: itemset_count")
     _done(t0)
 
@@ -334,12 +511,14 @@ def main() -> int:
         tgt_h = tgt_d.cpu().numpy()
         # K3's bound: the 8 chunk launches' bounds, each with its hit count
         k3_bound = 0.0
+        sizes = _target_sizes(tgt_d)
         for s0 in range(0, u, STREAM_CHUNK_ROWS):
             txc = tx_d[s0:s0 + STREAM_CHUNK_ROWS]
             hits_c = int(itemset_counts(txc, tgt_d, ones[s0:s0 + len(txc)],
                                         use_kernel=False).sum())
             k3_bound += kernel_model.predicted_seconds(
-                txc.shape[0], pl["k"], w_words, 2, hits=hits_c) * 1e3
+                txc.shape[0], pl["k"], w_words, 2, hits=hits_c,
+                target_sizes=sizes) * 1e3
         pl["k3_bound_ms"] = k3_bound
 
         def sweep():
@@ -381,6 +560,12 @@ def main() -> int:
         span = (max(e for _, e in ku + hu) - min(s for s, _ in ku + hu))
         busy = _length(_union(kern + h2d))
         hidden = _intersect(ku, hu)
+        pl["k3_kernels_ms"] = _length(ku) / 1e3
+        pl["k3_idle"] = 1 - busy / span
+        if pl["k3_kernels_ms"] < k3_bound:
+            raise AssertionError(f"{label}: the sweep's kernels took "
+                                 f"{pl['k3_kernels_ms']:.4f} ms, below the "
+                                 f"K3 bound {k3_bound:.4f} ms")
         print(line + f"; profiled: device span {span / 1e3:.3f} ms, kernels "
               f"{_length(ku) / 1e3:.3f} ms, H2D copies {_length(hu) / 1e3:.3f}"
               f" ms ({len(h2d)}), of which under kernels "
@@ -534,25 +719,33 @@ def main() -> int:
     per_launch_mxu = []
     for (label, tgt_d), pl in zip(tgts, per_launch):
         k = tgt_d.shape[0]
-        ms = _time_ms(lambda: itemset_counts(tx_d, tgt_d, w_d,
-                                             accum="mxu_f32"), KERNEL_RUNS, 2)
+        ms = _batch_ms(lambda: itemset_counts(tx_d, tgt_d, w_d,
+                                              accum="mxu_f32"), KERNEL_RUNS)
         plain_ms = _time_ms(
             lambda: itemset_counts(tx_d, tgt_d, w_d, use_kernel=False,
                                    accum="mxu_f32"), PLAIN_RUNS, 1)
+        sizes = _target_sizes(tgt_d)
         bound_ms = kernel_model.predicted_seconds(
-            u, k, w_words, 2, accum="mxu_f32") * 1e3
+            u, k, w_words, 2, accum="mxu_f32", target_sizes=sizes) * 1e3
         tensor_ms = kernel_model.tensor_ops(
             u, k, 2) / kernel_model.PEAK_INT8_TENSOR_OPS * 1e3
-        by = kernel_model.bound_by(u, k, w_words, 2, accum="mxu_f32")
+        by = kernel_model.bound_by(u, k, w_words, 2, accum="mxu_f32",
+                                   target_sizes=sizes)
+        # the horizontal model's bound: one LOP3 per word and pair
+        hbound_ms = max(kernel_model.horizontal_flops(u, k, w_words, 2)
+                        / kernel_model.PEAK_INT32_OPS * 1e3, bound_ms)
         per_launch_mxu.append(dict(geometry=label, n=u, k=k, w=w_words, c=2,
                                    ms=ms, plain_ms=plain_ms,
                                    bound_ms=bound_ms, bound_by=by,
+                                   horizontal_bound_ms=hbound_ms,
                                    tensor_ms=tensor_ms, k1_ms=pl["ms"]))
-        print(f"   {label}: N={u} K={k}: K2 {ms:.4f} ms (median of "
-              f"{KERNEL_RUNS}), K1 {pl['ms']:.4f} ms (phase 3), K2/K1 "
+        print(f"   {label}: N={u} K={k}: K2 {ms:.4f} ms (median of 3 "
+              f"batches of {KERNEL_RUNS}), K1 {pl['ms']:.4f} ms (phase 3), K2/K1 "
               f"{ms / pl['ms']:.2f}; K2 bound {bound_ms:.4f} ms ({by}; "
               f"tensor term {tensor_ms:.4f} ms), K2/bound "
-              f"{ms / bound_ms:.2f}; plain mxu_f32 {plain_ms:.3f} ms "
+              f"{ms / bound_ms:.2f}; horizontal bound {hbound_ms:.4f} ms, "
+              f"K2/horizontal bound {ms / hbound_ms:.2f}; plain mxu_f32 "
+              f"{plain_ms:.3f} ms "
               f"(median of {PLAIN_RUNS})")
     obs.configure(kernel_timing=True)
     _done(t0)
@@ -697,6 +890,9 @@ def main() -> int:
         "bound_ms": sum(p["bound_ms"] for p in per_launch),
         "bound_by": per_launch[1]["bound_by"],
         "library_ms": None,
+        "prep_ms": sum(p["prep_ms"] for p in per_launch),
+        "horizontal_bound_ms": sum(p["horizontal_bound_ms"]
+                                   for p in per_launch),
         "launches_streamed": stream_launches,
         "bound_ms_streamed": sum(p["k3_bound_ms"] for p in per_launch),
         "per_launch": per_launch,
@@ -714,6 +910,8 @@ def main() -> int:
         "bound_ms": sum(p["bound_ms"] for p in per_launch_mxu),
         "bound_by": per_launch_mxu[1]["bound_by"],
         "library_ms": None,
+        "horizontal_bound_ms": sum(p["horizontal_bound_ms"]
+                                   for p in per_launch_mxu),
         "launches_streamed": k3_mxu["mxu_f32"],
         "per_launch": per_launch_mxu,
     }]}

@@ -10,8 +10,12 @@ the active tuning table (``roofline.autotune.resolve_launch_config``), which
 falls back to the compiled-in defaults below.  ``accum`` picks the route of
 the weighted reduction:
 
-  * ``"vpu_int32"``: ``csrc/itemset_count.cu`` (K1), int32 adds on the CUDA
-    cores;
+  * ``"vpu_int32"``: ``csrc/itemset_count.cu`` (K1), bit-sliced: a layout
+    pass turns the rows into item columns and the weights into odd planes
+    and a heavy-row column (32 rows per word) in a scratch buffer the
+    wrapper keeps per stream (sized by the kernel library's
+    ``sliced_geometry``), then the count kernel ANDs each target's columns
+    and adds popcounts on the CUDA cores;
   * ``"mxu_f32"``: ``csrc/itemset_count_mxu.cu`` (K2), the reduction as an
     exact int8 product on the tensor cores.  Its contract is the JAX
     package's f32 route: refused with a ``ValueError`` for N >= 2^24 rows
@@ -27,29 +31,47 @@ Which code runs is decided by the tensors alone:
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from ... import obs
 from ...roofline import autotune
 from ...roofline.kernel_model import record_launch
-from .ref import (check_accum, check_inputs, itemset_counts_ref,
-                  itemset_counts_ref_blocked)
+from .ref import (check_accum, check_inputs, heavy_rows, itemset_counts_ref,
+                  itemset_counts_ref_blocked, to_item_columns,
+                  to_weight_planes)
 
 __all__ = ["itemset_counts", "itemset_counts_into", "itemset_counts_ref",
-           "itemset_counts_ref_blocked", "flush_timings"]
+           "itemset_counts_ref_blocked", "bit_slice", "sliced_geometry",
+           "flush_timings"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = _CSRC / "itemset_count.cu"             # K1 (+ K3 by its flag)
 SOURCE_MXU = _CSRC / "itemset_count_mxu.cu"     # K2 (+ K3 by its flag)
-# accum route -> (source, C entry point)
-_ROUTES = {"vpu_int32": (SOURCE, "itemset_count_launch"),
-           "mxu_f32": (SOURCE_MXU, "itemset_count_mxu_launch")}
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# accum route -> (source, C entry point, its argument types)
+_ROUTES = {
+    # tx, tgt, wts, out, scratch, scratch words, n, k, w, c, block_k,
+    # block_n, accumulate, stream
+    "vpu_int32": (SOURCE, "itemset_count_launch",
+                  [_P] * 5 + [_LL] * 3 + [_I] * 5 + [_P]),
+    # tx, tgt, wts, out, n, k, w, c, block_k, block_n, accumulate, stream
+    "mxu_f32": (SOURCE_MXU, "itemset_count_mxu_launch",
+                [_P] * 4 + [_LL] * 2 + [_I] * 5 + [_P]),
+}
+# K1's layout pass alone: tx, wts, scratch, scratch words, n, w, c, block_n,
+# stream
+_LAYOUT = ("itemset_count_layout", [_P] * 3 + [_LL] * 2 + [_I] * 3 + [_P])
+# K1's layout geometry: n, w, c, block_n, out (7 long longs)
+_GEOMETRY = ("itemset_count_geometry",
+             [_LL] + [_I] * 3 + [ctypes.POINTER(_LL)])
 
 # Compiled-in launch defaults (the autotuner's fallback): targets per CTA
-# (one thread each) and rows staged in shared memory per step.
+# (one thread each) and rows per stage.
 DEFAULT_BLOCK_K = autotune.DEFAULT_BLOCK_K
 DEFAULT_BLOCK_N = autotune.DEFAULT_BLOCK_N
 DEFAULT_ACCUM = autotune.DEFAULT_ACCUM
@@ -70,21 +92,63 @@ _FNS: dict = {}
 _PENDING: List[tuple] = []
 
 
-def _launcher(accum: str):
-    """The route's C entry point (both take the same argument list)."""
-    fn = _FNS.get(accum)
+def _c_function(source: Path, name: str, argtypes: list):
+    fn = _FNS.get(name)
     if fn is None:
         from .._build import load
 
-        source, name = _ROUTES[accum]
         fn = getattr(load(source), name)
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FNS[accum] = fn
+        _FNS[name] = fn
     return fn
+
+
+def _launcher(accum: str):
+    """The route's C entry point."""
+    return _c_function(*_ROUTES[accum])
+
+
+class SlicedGeometry(NamedTuple):
+    """K1's bit-sliced layout of one launch, in uint32 words, as the kernel
+    source defines it (``csrc/itemset_count.cu::itemset_count_geometry``)."""
+    stage_words: int    # row-words (32 rows each) per stage
+    stages: int
+    padded_words: int   # row-words, padded to whole stages
+    words: int          # the scratch's length
+    heavy: int          # offset of the heavy column
+    odd: int            # offset of the first class's odd plane
+    live: int           # offset of the live masks
+
+
+@functools.lru_cache(maxsize=1024)
+def sliced_geometry(n: int, w: int, c: int, block_n: int) -> SlicedGeometry:
+    """K1's layout of ``n`` rows of ``w`` words and ``c`` classes for
+    ``block_n``, from the kernel library (built at first use)."""
+    out = (_LL * 7)()
+    err = _c_function(SOURCE, *_GEOMETRY)(n, w, c, block_n, out)
+    if err != 0:
+        raise ValueError(f"itemset_count geometry: cudaError {err} at "
+                         f"(N={n}, W={w}, C={c}, block_n={block_n})")
+    return SlicedGeometry(*out)
+
+
+# One layout scratch per (device, stream, thread), grown when a launch needs
+# more and reused by every later launch there: one thread's launches on one
+# stream run in order, so none overwrites a scratch that an earlier one
+# still reads (two threads' launches may interleave on a stream, hence one
+# scratch each), and a sweep allocates nothing per chunk.  It holds the
+# largest layout launched there.
+_SCRATCH: dict = {}
+
+
+def _scratch(words: int, stream) -> torch.Tensor:
+    key = (stream.device, stream.cuda_stream, threading.get_ident())
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.empty(words, dtype=torch.int32, device=stream.device)
+        _SCRATCH[key] = buf
+    return buf[:words]
 
 
 def build() -> None:
@@ -92,9 +156,11 @@ def build() -> None:
     load them; otherwise each route's first launch builds its own."""
     from .._build import build_all
 
-    build_all(source for source, _ in _ROUTES.values())
+    build_all(source for source, _, _ in _ROUTES.values())
     for accum in _ROUTES:
         _launcher(accum)
+    _c_function(SOURCE, *_LAYOUT)
+    _c_function(SOURCE, *_GEOMETRY)
 
 
 def flush_timings(wait: bool = True) -> None:
@@ -138,10 +204,13 @@ def _launch(out: torch.Tensor, tx_bits: torch.Tensor, tgt_bits: torch.Tensor,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record(stream)
-        err = launch(
-            tx_bits.data_ptr(), tgt_bits.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), n, k, w, c, block_k, block_n, int(accumulate),
-            stream.cuda_stream)
+        ptrs = [tx_bits.data_ptr(), tgt_bits.data_ptr(), weights.data_ptr(),
+                out.data_ptr()]
+        if accum == "vpu_int32":
+            words = sliced_geometry(n, w, c, block_n).words
+            ptrs += [_scratch(words, stream).data_ptr(), words]
+        err = launch(*ptrs, n, k, w, c, block_k, block_n, int(accumulate),
+                     stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"itemset_count kernel ({accum}) launch failed "
                                f"with cudaError {err} at (N={n}, K={k}, "
@@ -152,6 +221,60 @@ def _launch(out: torch.Tensor, tx_bits: torch.Tensor, tgt_bits: torch.Tensor,
             end.record(stream)
             _PENDING.append((start, end, n, k, w, c))
             flush_timings(wait=False)
+
+
+class BitSliced(NamedTuple):
+    """K1's bit-sliced layout, uint32: ``columns`` (32W + 1, words), the
+    classes' ``odd`` planes (C, words), the ``heavy`` column (words,) and
+    the ``live`` masks (C, stages) of stages of ``stage_words`` row-words."""
+    columns: torch.Tensor
+    odd: torch.Tensor
+    heavy: torch.Tensor
+    live: torch.Tensor
+    stage_words: int
+
+
+def bit_slice(tx_bits: torch.Tensor, weights: torch.Tensor, *,
+              block_n: int = DEFAULT_BLOCK_N) -> BitSliced:
+    """K1's bit-sliced layout of ``(tx_bits, weights)`` for ``block_n``.
+
+    On a CUDA tensor it runs the kernel's layout pass alone (on the current
+    stream; not counted in ``KERNEL_LAUNCHES``, which counts whole counts):
+    the kernel's stage (``sliced_geometry``) and its words padded to whole
+    stages, pad rows zero.  On the CPU it is the plain version
+    (``ref.to_item_columns``; ``ref.to_weight_planes`` plane 0, its live
+    masks, and ``ref.heavy_rows``) over ``ceil(N / 32)`` words, with stages
+    of ``ceil(block_n / 32)`` row-words."""
+    if weights.ndim == 1:
+        weights = weights[:, None]
+    n, w = tx_bits.shape
+    c = weights.shape[1]
+    if n == 0:
+        raise ValueError("bit_slice: no rows")
+    if tx_bits.device.type == "cpu":
+        sw = -(-block_n // 32)
+        planes, live = to_weight_planes(weights, sw)
+        return BitSliced(to_item_columns(tx_bits), planes[:, 0],
+                         heavy_rows(planes), live, sw)
+    tx_bits = tx_bits.contiguous()
+    weights = weights.to(torch.int32).contiguous()
+    g = sliced_geometry(n, w, c, block_n)
+    scratch = torch.empty(g.words, dtype=torch.int32, device=tx_bits.device)
+    layout = _c_function(SOURCE, *_LAYOUT)
+    with torch.cuda.device(tx_bits.device):
+        stream = torch.cuda.current_stream(tx_bits.device)
+        err = layout(tx_bits.data_ptr(), weights.data_ptr(),
+                     scratch.data_ptr(), g.words, n, w, c, block_n,
+                     stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"itemset_count layout pass failed with cudaError "
+                           f"{err} at (N={n}, W={w}, C={c})")
+    words = scratch.view(torch.uint32)
+    nwp = g.padded_words
+    return BitSliced(words[:g.heavy].view(32 * w + 1, nwp),
+                     words[g.odd:g.live].view(c, nwp),
+                     words[g.heavy:g.heavy + nwp],
+                     words[g.live:].view(c, g.stages), g.stage_words)
 
 
 def _counts(acc: Optional[torch.Tensor], tx_bits, tgt_bits, weights, *,
@@ -222,8 +345,10 @@ def itemset_counts(
 ) -> torch.Tensor:             # (K, C) int32
     """Exact counts of every target itemset, per weight column (class).
 
-    ``block_k`` (targets per CTA, one thread each) and ``block_n`` (rows
-    staged in shared memory per step; K2 stages a fixed 128) left as None,
+    ``block_k`` (targets per CTA, one thread each, any value in [1, 1024])
+    and ``block_n`` (K1: rows per stage of the bit-sliced sweep, rounded up
+    to a multiple of 128 rows and cut to fit shared memory; K2 stages a
+    fixed 128) left as None,
     and ``accum`` left as None, resolve through the active tuning table.
     ``accum`` is ``'vpu_int32'`` (K1: the integer reduction on the CUDA
     cores) or ``'mxu_f32'`` (K2: the reduction on the tensor cores; N < 2^24

@@ -23,6 +23,16 @@ The weighted reduction follows the kernel's ``accum`` route:
 
 The per-block sums are added in int64 and wrapped to int32 at the end, as an
 int32 product would wrap.
+
+The bit-sliced form that K1 (``csrc/itemset_count.cu``) counts over has its
+plain version here too, for the tests and ``chip_smoke.py``:
+``to_item_columns`` and ``to_weight_planes`` (with ``heavy_rows``) give the
+words of the kernel's layout over ``ceil(N / 32)`` row-words (its layout
+pass, which pads to whole stages with zero rows, is compared with them bit
+for bit), and ``itemset_counts_sliced`` counts over them,
+``sum_b popc(h & plane_b) << b`` over the live planes of each stage, where
+``h`` is the AND of the target's item columns.  The stage is a parameter:
+the kernel's own stage geometry lives in its source alone.
 """
 from __future__ import annotations
 
@@ -124,3 +134,124 @@ def itemset_counts_ref_blocked(tx_bits: torch.Tensor, tgt_bits: torch.Tensor,
                 tx_bits[n0:n0 + block_n], tgt, weights[n0:n0 + block_n],
                 accum)
     return out.to(torch.int32)
+
+
+# -- the bit-sliced form (K1's layout) -----------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the same bits as uint32."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(
+        torch.uint32)
+
+
+def _bits64(x: torch.Tensor) -> torch.Tensor:
+    """uint32 or int32 tensor -> int64 values of its 32 bits."""
+    if x.dtype == torch.uint32:
+        x = x.view(torch.int32)
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _slice_rows(vals: torch.Tensor, block_words: int = 256) -> torch.Tensor:
+    """(N, F) int64 32-bit values -> (F * 32, ceil(N / 32)) int64 column
+    words: word j of column 32 * f + b holds bit b of field f of rows
+    32 * j .. 32 * j + 31 (row 32 * j + l at bit l); rows past N are zero."""
+    n, f = vals.shape
+    nw = _cdiv(n, 32)
+    out = torch.zeros((nw, f * 32), dtype=torch.int64, device=vals.device)
+    shifts = torch.arange(32, device=vals.device)
+    for j0 in range(0, nw, block_words):
+        j1 = min(j0 + block_words, nw)
+        blk = torch.zeros(((j1 - j0) * 32, f), dtype=torch.int64,
+                          device=vals.device)
+        part = vals[j0 * 32:j1 * 32]
+        blk[:part.shape[0]] = part
+        bits = (blk.view(j1 - j0, 32, f)[..., None] >> shifts) & 1
+        # (words, 32 rows l, f, 32 bits b) -> sum over l of bit << l
+        out[j0:j1] = (bits << shifts[None, :, None, None]).sum(1).reshape(
+            j1 - j0, f * 32)
+    return out.T
+
+
+def to_item_columns(tx_bits: torch.Tensor) -> torch.Tensor:
+    """(N, W) uint32 rows -> (32 * W + 1, ceil(N / 32)) uint32 item columns:
+    column i holds item i (bit i % 32 of word i // 32) of 32 rows per word,
+    then the all-ones column of the empty itemset."""
+    cols = _slice_rows(_bits64(tx_bits))
+    ones = torch.full((1, cols.shape[1]), 0xFFFFFFFF, dtype=torch.int64,
+                      device=cols.device)
+    return _u32(torch.cat([cols, ones]))
+
+
+def to_weight_planes(weights: torch.Tensor, stage_words: int):
+    """(N, C) int32 weights -> ``(planes, live)``: ``planes`` (C, 32,
+    ceil(N / 32)) uint32, plane b of class c holding bit b of the
+    two's-complement weights of 32 rows per word; ``live`` (C, nst) uint32
+    over stages of ``stage_words`` row-words (the last one may be short),
+    bit b set iff plane b has a set bit in the stage (the OR of the stage's
+    weights)."""
+    n, c = weights.shape
+    nw = _cdiv(n, 32)
+    nst = _cdiv(nw, stage_words)
+    planes = _slice_rows(_bits64(weights.to(torch.int32))).view(c, 32, nw)
+    padded = torch.zeros((c, 32, nst * stage_words), dtype=torch.int64,
+                         device=planes.device)
+    padded[..., :nw] = planes
+    nonzero = (padded.view(c, 32, nst, stage_words) != 0).any(-1)  # (C,32,nst)
+    shifts = torch.arange(32, device=planes.device)[None, :, None]
+    live = (nonzero.to(torch.int64) << shifts).sum(1)
+    return _u32(planes), _u32(live)
+
+
+def heavy_rows(planes: torch.Tensor) -> torch.Tensor:
+    """(C, 32, words) weight planes -> (words,) uint32: the rows whose weight
+    is neither 0 nor 1 in some class (a set bit in a plane b >= 1)."""
+    pl = _bits64(planes)
+    out = torch.zeros(pl.shape[2], dtype=torch.int64, device=pl.device)
+    for c in range(pl.shape[0]):
+        for b in range(1, 32):
+            out |= pl[c, b]
+    return _u32(out)
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 values in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def itemset_counts_sliced(columns: torch.Tensor, planes: torch.Tensor,
+                          live: torch.Tensor, tgt_bits: torch.Tensor,
+                          stage_words: int, block_k: int = 256
+                          ) -> torch.Tensor:
+    """(K, C) int32 counts over the bit-sliced form: for each target, ``h``
+    is the AND of its item columns (the all-ones column for the empty
+    itemset), and each class adds ``popc(h & plane_b) << b`` over the planes
+    that ``live`` marks in each stage of ``stage_words`` row-words,
+    wrapping modulo 2^32."""
+    cols = _bits64(columns)
+    c, _, nwp = planes.shape
+    lv = _bits64(live)                                          # (C, nst)
+    bit = torch.arange(32, device=cols.device)
+    keep = ((lv[:, None, :] >> bit[None, :, None]) & 1).repeat_interleave(
+        stage_words, dim=2)[..., :nwp] * 0xFFFFFFFF             # (C, 32, nwp)
+    pl = _bits64(planes) & keep
+    k, w = tgt_bits.shape
+    member = ((_bits64(tgt_bits)[:, :, None] >> bit) & 1).reshape(k, w * 32)
+    out = torch.zeros((k, c), dtype=torch.int64, device=cols.device)
+    for k0 in range(0, k, block_k):
+        mk = member[k0:k0 + block_k].bool()
+        h = cols[-1].expand(mk.shape[0], nwp).clone()
+        for i in torch.nonzero(mk.any(0)).flatten().tolist():
+            sel = mk[:, i]
+            h[sel] &= cols[i]
+        for ci in range(c):
+            for b in range(32):
+                out[k0:k0 + block_k, ci] += _popcount32(
+                    h & pl[ci, b]).sum(1) << b
+    return _u32(out & 0xFFFFFFFF).view(torch.int32)

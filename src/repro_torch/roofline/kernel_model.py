@@ -1,38 +1,45 @@
-"""Roofline model of the ``itemset_count`` CUDA kernel, per launch geometry.
+"""Roofline model of the ``itemset_count`` CUDA kernels, per launch geometry.
 
-The counting kernel is a (N, W)-bitmap x (K, W)-target containment sweep
-with a per-class weighted reduction: for every (row, target) pair it tests
-whether the row holds the target's W packed words, then adds the row's C
-weights for the contained pairs.  Per launch of geometry (N, K, W, C):
+The counting kernel computes, for (N, W) bitmap rows, (K, W) targets and
+(N, C) weights, ``counts[k, c] = sum_n w[n, c] * [row n contains target k]``.
+Its bound is the least time the card could take for that function: the
+larger of the bytes it must move and the operations it must do.
 
-  bytes  = 4 * (N*W + N*C + K*W + K*C)      one pass over bitmap + weights,
-                                            targets + the (K, C) result
-  ops    = N*K * W + C * hits               per pair, one LOP3 per word:
-                                            `miss |= t & ~row`, the last
-                                            one also writing `miss == 0`
-                                            to a predicate; C adds per
-                                            contained pair
+  bytes = 4 * (N*W + N*C + K*W + K*C)       each input read once, the (K, C)
+                                            result written once
+  ops   = ceil(N/32) * sum_k floor(s_k/2)   the containment test, bit-sliced
+          + C * hits                        (32 rows per word): a target of
+                                            s_k items is the AND of its s_k
+                                            item-column words,
+                                            ceil((s_k - 1)/2) = floor(s_k/2)
+                                            three-input LOP3s per 32 rows;
+                                            C adds per contained pair
 
-The per-pair count is what the built kernel issues: ``cuobjdump -sass`` of
-``count_reg_kernel<2, 2>`` shows two ``LOP3.LUT`` per pair, the second with
-a predicate output.  ``hits`` is the number of contained (row, target)
-pairs, which depends on the data: a caller that knows it (``chip_smoke.py``
-counts it on the card) passes it; the telemetry path does not, and its
-prediction then counts the containment test alone, a floor of the work
-that never flatters a launch.  (The JAX package's model charges
-N*K*(2W + C), as if every pair paid W ANDs, W compares and all C adds;
-at W = C = 2 that is three times the work.)
+``hits`` is the number of contained (row, target) pairs and ``s_k`` the
+number of items of target k, both data: a caller that knows them
+(``chip_smoke.py`` counts them) passes them.  The telemetry path
+(``record_launch``) knows neither, so its prediction counts one AND per
+target and row-word and no adds, a floor that never flatters a launch.
+
+The model's first form counted the work of the *horizontal* formulation,
+one LOP3 per word for every (row, target) pair: ``N*K*W + C*hits``
+(``horizontal_flops``, kept to compare with the times it was quoted
+beside).  That is the work of a kernel that reads rows one at
+a time, not the least work of the function: the bit-sliced K1
+(``csrc/itemset_count.cu``) runs below it, and a kernel/bound ratio under 1
+would show the count wrong, not the kernel fast.  The JAX package's model
+charges N*K*(2W + C), three times the horizontal count at W = C = 2.
 
 Predicted launch time is the perfect-overlap roofline bound
 ``max(bytes/HBM_BW, ops/PEAK_INT32_OPS)`` with the H100 SXM constants below.
 
 ``accum="mxu_f32"`` (K2, ``csrc/itemset_count_mxu.cu``) moves the weighted
 reduction to the tensor cores as an int8 product over the weights' 4 byte
-planes: the integer pipe keeps the containment test (N*K*W, no per-hit
-adds), and the tensor cores do ``2*N*K*4C`` int8 operations.  Its bound is
-the larger of the two times (and of the bytes): at the main-path level 3
-(N = 969,130, K = 34,220, W = C = 2) about 3.97 ms of containment against
-0.27 ms of tensor work, so K2's bound is essentially K1's.
+planes: the integer pipe keeps the containment test (no per-hit adds), and
+the tensor cores do ``2*N*K*4C`` int8 operations.  Its bound is the larger
+of the three times: at the main-path level 3 (N = 969,130, K = 34,220,
+W = C = 2, three items a target) about 0.06 ms of containment against
+0.27 ms of tensor work, so K2's bound is its tensor term.
 
 ``record_launch`` publishes measured device time against that prediction
 into the telemetry registry (``repro_torch.obs``), so a run reports a
@@ -55,7 +62,7 @@ Constants (NVIDIA H100 SXM, at the full 700 W power limit):
 from __future__ import annotations
 
 import re
-from typing import Tuple
+from typing import Iterable, Optional, Tuple
 
 HBM_BW = 3.35e12                          # B/s
 SM_COUNT = 132
@@ -67,10 +74,27 @@ PEAK_INT8_TENSOR_OPS = 1.979e15           # op/s, dense int8 tensor cores
 _WORD_BYTES = 4
 
 
-def kernel_flops(n: int, k: int, w: int, c: int, hits: int = 0) -> float:
-    """Integer-op count of one containment sweep: the W-word test of every
-    (row, target) pair plus the C adds of each of ``hits`` contained
-    pairs."""
+def and_ops(n: int, k: int, target_sizes: Optional[Iterable[int]] = None
+            ) -> float:
+    """Three-input ANDs of the bit-sliced containment test: floor(s/2) per
+    target of s items and row-word of 32 rows; one per target and row-word
+    when the sizes are not known."""
+    words = float(-(-int(n) // 32))
+    if target_sizes is None:
+        return words * float(k)
+    return words * float(sum(int(s) // 2 for s in target_sizes))
+
+
+def kernel_flops(n: int, k: int, w: int, c: int, hits: int = 0,
+                 target_sizes: Optional[Iterable[int]] = None) -> float:
+    """Integer operations one count needs: the bit-sliced containment test
+    (``and_ops``) plus the C adds of each of ``hits`` contained pairs."""
+    return and_ops(n, k, target_sizes) + float(c) * float(hits)
+
+
+def horizontal_flops(n: int, k: int, w: int, c: int, hits: int = 0) -> float:
+    """The horizontal count: one LOP3 per word for every (row, target) pair
+    plus the C adds of each contained pair."""
     return float(n) * float(k) * float(w) + float(c) * float(hits)
 
 
@@ -86,22 +110,32 @@ def kernel_bytes(n: int, k: int, w: int, c: int) -> float:
                           + float(k) * w + float(k) * c)
 
 
-def _times(n: int, k: int, w: int, c: int, hits: int, accum: str):
+def _times(n: int, k: int, w: int, c: int, hits: int, accum: str,
+           target_sizes: Optional[Iterable[int]]):
     """(integer-pipe, tensor-core, memory) seconds of one launch."""
     if accum == "mxu_f32":
-        return (kernel_flops(n, k, w, c) / PEAK_INT32_OPS,
+        return (and_ops(n, k, target_sizes) / PEAK_INT32_OPS,
                 tensor_ops(n, k, c) / PEAK_INT8_TENSOR_OPS,
                 kernel_bytes(n, k, w, c) / HBM_BW)
-    return (kernel_flops(n, k, w, c, hits) / PEAK_INT32_OPS, 0.0,
+    return (kernel_flops(n, k, w, c, hits, target_sizes) / PEAK_INT32_OPS, 0.0,
             kernel_bytes(n, k, w, c) / HBM_BW)
 
 
 def predicted_seconds(n: int, k: int, w: int, c: int, hits: int = 0,
-                      accum: str = "vpu_int32") -> float:
+                      accum: str = "vpu_int32",
+                      target_sizes: Optional[Iterable[int]] = None) -> float:
     """Perfect-overlap roofline bound for one launch on the card.  ``hits``
     counts only for ``vpu_int32``: K2 adds no weights on the integer
     pipe."""
-    return max(_times(n, k, w, c, hits, accum))
+    return max(_times(n, k, w, c, hits, accum, target_sizes))
+
+
+def horizontal_seconds(n: int, k: int, w: int, c: int, hits: int = 0
+                       ) -> float:
+    """The horizontal bound: ``horizontal_flops`` against the same
+    bytes."""
+    return max(horizontal_flops(n, k, w, c, hits) / PEAK_INT32_OPS,
+               kernel_bytes(n, k, w, c) / HBM_BW)
 
 
 # -- geometry bucketing ------------------------------------------------------
@@ -164,10 +198,11 @@ def _reset_geometry_buckets() -> None:
 
 
 def bound_by(n: int, k: int, w: int, c: int, hits: int = 0,
-             accum: str = "vpu_int32") -> str:
+             accum: str = "vpu_int32",
+             target_sizes: Optional[Iterable[int]] = None) -> str:
     """Which side of the roofline bounds this geometry: ``"operations"`` or
     ``"bytes"``."""
-    int_s, tensor_s, mem_s = _times(n, k, w, c, hits, accum)
+    int_s, tensor_s, mem_s = _times(n, k, w, c, hits, accum, target_sizes)
     return "operations" if max(int_s, tensor_s) >= mem_s else "bytes"
 
 
@@ -176,9 +211,10 @@ def record_launch(n: int, k: int, w: int, c: int, seconds: float) -> None:
     geometry BUCKET (launch count, measured seconds, predicted seconds) —
     the efficiency ratio is derived at snapshot time by
     ``repro_torch.obs.kernel_efficiency``.  The prediction uses the exact
-    geometry and counts the containment test alone (the wrapper does not
-    read the hit count back); only the aggregation label is bucketized
-    (bounded label set)."""
+    geometry and counts the containment test alone, one AND per target and
+    row-word (the wrapper reads neither the hit count nor the targets'
+    sizes back); only the aggregation label is bucketized (bounded label
+    set)."""
     from ..obs import REGISTRY
 
     geom = _bucket_label(n, k, w, c)

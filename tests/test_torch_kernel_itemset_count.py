@@ -300,16 +300,29 @@ def test_cpu_mxu_runs_plain_version_without_launch():
 
 
 def test_kernel_model_mxu_bound():
+    from repro.roofline import kernel_model as jkm
     from repro_torch.roofline import kernel_model as km
 
     n, k, w, c = 969130, 34220, 2, 2
-    ints = n * k * w / km.PEAK_INT32_OPS
+    words = -(-n // 32)
+    ints = words * k / km.PEAK_INT32_OPS     # one AND per target and word
     tensor = 2 * n * k * 4 * c / km.PEAK_INT8_TENSOR_OPS
+    assert km.and_ops(n, k) == words * k
     assert km.tensor_ops(n, k, c) == 2 * n * k * 4 * c
     assert km.predicted_seconds(n, k, w, c, accum="mxu_f32") == max(
         ints, tensor, km.kernel_bytes(n, k, w, c) / km.HBM_BW)
-    # about 3.97 ms of containment against 0.27 ms of tensor work
-    assert 3.9e-3 < ints < 4.0e-3 and 0.26e-3 < tensor < 0.28e-3
+    # about 0.06 ms of bit-sliced containment against 0.27 ms of tensor
+    # work: the restated K2 bound is its tensor term
+    assert 0.06e-3 < ints < 0.07e-3 and 0.26e-3 < tensor < 0.28e-3
+    assert km.predicted_seconds(n, k, w, c, accum="mxu_f32") == tensor
+    # three items a target: floor(3/2) = 1 AND per word, the same count
+    assert km.predicted_seconds(n, k, w, c, accum="mxu_f32",
+                                target_sizes=[3] * k) == tensor
+    # the horizontal count stays reachable, and the JAX model's beside it
+    assert km.horizontal_flops(n, k, w, c) == n * k * w
+    assert jkm.kernel_flops(n, k, w, c) == n * k * (2 * w + c)
+    assert km.and_ops(n, k) < km.horizontal_flops(n, k, w, c) \
+        < jkm.kernel_flops(n, k, w, c)
     # hits do not enter K2's bound: its adds run on the tensor cores
     assert km.predicted_seconds(n, k, w, c, hits=n * k, accum="mxu_f32") \
         == km.predicted_seconds(n, k, w, c, accum="mxu_f32")
@@ -339,16 +352,47 @@ def test_kernel_model_counts_and_buckets_match_jax(geom):
     from repro_torch.roofline import kernel_model as km
 
     n, k, w, c = geom
+    words = -(-n // 32)
     assert km.kernel_bytes(*geom) == jkm.kernel_bytes(*geom)
     assert km.geometry_bucket(*geom) == jkm.geometry_bucket(*geom)
-    # one LOP3 per word and pair, C adds per contained pair; the JAX model's
-    # 2W + C per pair is an upper bound on that even if every pair hits
-    assert km.kernel_flops(*geom) == n * k * w
-    assert km.kernel_flops(*geom, hits=7) == n * k * w + 7 * c
-    assert km.kernel_flops(*geom, hits=n * k) <= jkm.kernel_flops(*geom)
+    # bit-sliced: one AND per target and row-word of 32 rows when the
+    # targets' sizes are unknown, C adds per contained pair
+    assert km.kernel_flops(*geom) == words * k
+    assert km.kernel_flops(*geom, hits=7) == words * k + 7 * c
+    # the horizontal count (one LOP3 per word and pair) and the JAX
+    # model's N*K*(2W + C) stay pinned beside it, each above the last
+    assert km.horizontal_flops(*geom) == n * k * w
+    assert km.horizontal_flops(*geom, hits=7) == n * k * w + 7 * c
+    assert jkm.kernel_flops(*geom) == n * k * (2 * w + c)
+    assert km.kernel_flops(*geom, hits=n * k) \
+        <= km.horizontal_flops(*geom, hits=n * k) <= jkm.kernel_flops(*geom)
     assert km.predicted_seconds(*geom, hits=3) == max(
         km.kernel_flops(*geom, hits=3) / km.PEAK_INT32_OPS,
         km.kernel_bytes(*geom) / km.HBM_BW)
+    assert km.horizontal_seconds(*geom, hits=3) == max(
+        km.horizontal_flops(*geom, hits=3) / km.PEAK_INT32_OPS,
+        km.kernel_bytes(*geom) / km.HBM_BW)
+
+
+@pytest.mark.parametrize("sizes,ands", [
+    ([0], 0), ([1], 0), ([2], 1), ([3], 1), ([4], 2), ([5], 2), ([64], 32),
+    ([0, 1, 2, 3], 2), ([3] * 7, 7)])
+def test_kernel_model_and_count_by_target_size(sizes, ands):
+    """ceil((s - 1) / 2) three-input ANDs per target of s items and 32 rows:
+    none for the empty itemset (the all-ones column) or a single item."""
+    from repro_torch.roofline import kernel_model as km
+
+    n, k = 1000, len(sizes)                     # 32 row-words
+    assert km.and_ops(n, k, sizes) == 32 * ands
+    assert km.and_ops(n, k, iter(sizes)) == 32 * ands
+    assert km.and_ops(n, k) == 32 * k           # sizes unknown
+    assert km.kernel_flops(n, k, 2, 3, hits=5, target_sizes=sizes) \
+        == 32 * ands + 15
+    assert km.predicted_seconds(n, k, 2, 3, hits=5, target_sizes=sizes) == \
+        max((32 * ands + 15) / km.PEAK_INT32_OPS,
+            km.kernel_bytes(n, k, 2, 3) / km.HBM_BW)
+    # a few tiny targets over 1000 rows move more bytes than they compute
+    assert km.bound_by(n, k, 2, 3, hits=5, target_sizes=sizes) == "bytes"
 
 
 def test_record_launch_publishes_measured_against_predicted():
@@ -482,3 +526,239 @@ def test_kernel_timings_are_read_without_waiting_until_snapshot():
     finally:
         ops._PENDING.clear()
         obs.reset()
+
+
+# -- K1's bit-sliced form: the plain version against the JAX package ---------
+
+from repro_torch.kernels.itemset_count.ref import (heavy_rows,
+                                                   itemset_counts_sliced,
+                                                   to_item_columns,
+                                                   to_weight_planes)
+
+
+def _sliced_problem(n, k, w, c, weights, seed):
+    """A random problem whose first target is the empty itemset and whose
+    second is a single item; ``weights`` is "small" (0..6), "negative"
+    (-50..50) or "full" (the whole int32 range)."""
+    rng = np.random.default_rng(seed)
+    tx, tgt, _ = random_problem(rng, n, k, w, c, density=0.5)
+    tgt[0] = 0
+    if k > 1:
+        tgt[1] = 0
+        b = int(rng.integers(0, 32 * w))
+        tgt[1, b >> 5] = np.uint32(1) << np.uint32(b & 31)
+    lo, hi = {"small": (0, 7), "negative": (-50, 51),
+              "full": (-(1 << 31), 1 << 31)}[weights]
+    wts = rng.integers(lo, hi, size=(n, c), dtype=np.int64).astype(np.int32)
+    return tx, tgt, wts, rng
+
+
+SLICED_CASES = [
+    # (N, K, W, C, block_n, weights): ragged N (N % 32 != 0, N < 32),
+    # W in {1, 2, 3, 5, 65}, C in {1, 2, 3, 17}; stages of ceil(block_n / 32)
+    # row-words
+    (1, 3, 1, 1, 512, "small"),
+    (31, 9, 2, 2, 512, "negative"),
+    (33, 20, 1, 3, 1, "full"),
+    (200, 17, 2, 2, 100, "full"),
+    (1000, 40, 3, 17, 4096, "negative"),
+    (777, 30, 5, 2, 512, "full"),
+    (333, 12, 65, 2, 4096, "small"),
+    (4099, 25, 2, 1, 256, "full"),
+]
+
+
+@pytest.mark.parametrize("n,k,w,c,bn,weights", SLICED_CASES)
+def test_bit_sliced_counts_match_jax(n, k, w, c, bn, weights):
+    tx, tgt, wts, _ = _sliced_problem(n, k, w, c, weights, n + k + w)
+    sw = -(-bn // 32)
+    words = -(-n // 32)
+    t_tx, t_tgt, t_w = _t(tx, tgt, wts)
+    cols = to_item_columns(t_tx)
+    planes, live = to_weight_planes(t_w, sw)
+    assert tuple(cols.shape) == (32 * w + 1, words)
+    assert tuple(planes.shape) == (c, 32, words)
+    assert tuple(live.shape) == (c, -(-words // sw))
+    got = itemset_counts_sliced(cols, planes, live, t_tgt, sw, block_k=7)
+    want = np.asarray(jax_ref(jnp.asarray(tx), jnp.asarray(tgt),
+                              jnp.asarray(wts)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    # the empty itemset counts every row: the column sums, wrapped
+    sums = wts.astype(np.int64).sum(0)
+    assert np.array_equal(got[0].numpy(),
+                          ((sums + (1 << 31)) % (1 << 32) - (1 << 31)))
+
+
+@pytest.mark.parametrize("n,k,w,c,bn,weights", SLICED_CASES[::2])
+def test_bit_sliced_counts_into_match_jax(n, k, w, c, bn, weights):
+    """The accumulate form: acc + counts over the bit-sliced layout equals
+    the JAX package's itemset_counts_into, wrapping like it."""
+    tx, tgt, wts, rng = _sliced_problem(n, k, w, c, weights, n * 3 + c)
+    acc0 = rng.integers(-(1 << 31), 1 << 31, size=(k, c),
+                        dtype=np.int64).astype(np.int32)
+    want = np.asarray(jax_counts_into(jnp.asarray(acc0), jnp.asarray(tx),
+                                      jnp.asarray(tgt), jnp.asarray(wts)))
+    sw = -(-bn // 32)
+    t_tx, t_tgt, t_w = _t(tx, tgt, wts)
+    part = itemset_counts_sliced(to_item_columns(t_tx),
+                                 *to_weight_planes(t_w, sw), t_tgt, sw)
+    acc = torch.from_numpy(acc0.copy())
+    acc += part                                   # int32 adds wrap
+    assert np.array_equal(acc.numpy(), want)
+
+
+def test_bit_sliced_layout_words():
+    """Column 32 * j + b holds bit b of word j of 32 rows a word (row
+    32 * r + l at bit l), the last column is all ones, planes hold the
+    weights' two's-complement bits, rows past N are zero, and a stage's
+    live mask is the OR of its weights (the last stage is short)."""
+    rng = np.random.default_rng(5)
+    n, w, c, sw = 300, 2, 2, 4                     # 10 words, 3 stages
+    tx = rng.integers(0, 2 ** 32, size=(n, w), dtype=np.uint32)
+    wts = rng.integers(-3, 4, size=(n, c)).astype(np.int32)
+    wts[128:256] = np.abs(wts[128:256]) & 1        # stage 1: plane 0 only
+    cols = to_item_columns(torch.from_numpy(tx)).view(torch.int32)
+    planes, live = to_weight_planes(torch.from_numpy(wts), sw)
+    cols = cols.numpy().view(np.uint32)
+    planes = planes.view(torch.int32).numpy().view(np.uint32)
+    live = live.view(torch.int32).numpy().view(np.uint32)
+    assert cols.shape == (65, 10) and planes.shape == (2, 32, 10)
+    assert live.shape == (2, 3)
+    rows = np.arange(10 * 32)
+    for item in (0, 5, 31, 32, 63):
+        bits = (cols[item][rows // 32] >> (rows % 32).astype(np.uint32)) & 1
+        want = np.zeros(10 * 32, np.uint32)
+        want[:n] = (tx[:, item // 32] >> np.uint32(item % 32)) & 1
+        assert np.array_equal(bits, want)
+    assert (cols[64] == 0xFFFFFFFF).all()
+    uw = wts.view(np.uint32)
+    for ci in range(c):
+        for b in (0, 1, 31):
+            bits = (planes[ci, b][rows // 32] >> (rows % 32).astype(
+                np.uint32)) & 1
+            want = np.zeros(10 * 32, np.uint32)
+            want[:n] = (uw[:, ci] >> np.uint32(b)) & 1
+            assert np.array_equal(bits, want)
+        for st in range(3):
+            ors = np.bitwise_or.reduce(uw[st * 128:(st + 1) * 128, ci])
+            assert live[ci, st] == ors
+    assert (live[:, 1] <= 1).all()
+
+
+@pytest.mark.parametrize("sw", [1, 2, 3, 4, 7, 16, 64, 1000])
+def test_bit_sliced_counts_any_stage(sw):
+    """The counts over the bit-sliced form do not depend on the stage the
+    live masks are taken over (a short last stage, one stage for all rows,
+    stages of one row-word), with heavy and negative weights."""
+    tx, tgt, wts, _ = _sliced_problem(1000, 30, 2, 2, "negative", 77)
+    wts[:40] = 1
+    t_tx, t_tgt, t_w = _t(tx, tgt, wts)
+    got = itemset_counts_sliced(to_item_columns(t_tx),
+                                *to_weight_planes(t_w, sw), t_tgt, sw)
+    want = np.asarray(jax_ref(jnp.asarray(tx), jnp.asarray(tgt),
+                              jnp.asarray(wts)))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,c,bn,sw", [
+    (1, 2, 2, 512, 4),              # at least one 16-byte chunk
+    (969130, 2, 2, 512, 16),        # the main path: 512 rows a stage
+    (969130, 2, 2, 100, 4),         # 100 rows -> 4 words, 128 rows
+    (969130, 2, 2, 4096, 128),
+    (200, 2, 2, 4096, 8),           # no more than the rows need
+    (5000, 65, 17, 4096, 8),        # cut to fit 227 KB
+    (5000, 33, 2, 4096, 16),
+    (5000, 300, 2, 512, 4),         # nothing fits: read from device memory
+])
+def test_bit_sliced_stage_rounding(n, w, c, bn, sw):
+    """The kernel library's stage geometry (``ops.sliced_geometry``, owned
+    by the kernel source) and the scratch layout it reports."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    g = ops.sliced_geometry(n, w, c, bn)
+    assert g.stage_words == sw and g.stages == -(-(-(-n // 32)) // sw)
+    nwp = g.padded_words
+    assert nwp == g.stages * sw and nwp * 32 >= n
+    assert g.heavy == (32 * w + 1) * nwp and g.odd == g.heavy + nwp
+    assert g.live == g.odd + c * nwp and g.words == g.live + c * g.stages
+
+
+def test_bit_slice_wrapper_on_cpu_is_the_plain_layout():
+    rng = np.random.default_rng(8)
+    tx, _, wts = random_problem(rng, 100, 1, 3, 2)
+    wts[::7, 1] = 5                                # heavy rows
+    t_tx, t_w = _t(tx, wts)
+    before = ops.KERNEL_LAUNCHES
+    cols, odd, heavy, live, sw = ops.bit_slice(t_tx, t_w, block_n=64)
+    assert ops.KERNEL_LAUNCHES == before
+    assert sw == 2                                 # ceil(64 / 32) row-words
+    words = 4                                      # ceil(100 / 32)
+    assert torch.equal(cols, to_item_columns(t_tx))
+    planes, want_l = to_weight_planes(t_w, sw)
+    assert torch.equal(odd, planes[:, 0]) and torch.equal(live, want_l)
+    assert torch.equal(heavy, heavy_rows(planes))
+    assert tuple(odd.shape) == (2, words) and tuple(heavy.shape) == (words,)
+    # the heavy column marks exactly the rows with a weight not in {0, 1}
+    rows = np.arange(words * 32)
+    bits = (heavy.view(torch.int32).numpy().view(np.uint32)[rows // 32]
+            >> (rows % 32).astype(np.uint32)) & 1
+    want = np.zeros(words * 32, np.uint32)
+    want[:100] = ((wts != 0) & (wts != 1)).any(1)
+    assert np.array_equal(bits, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,c,bn", [(1, 1, 1, 512), (1000, 2, 2, 100),
+                                      (4099, 5, 3, 4096), (2000, 65, 17, 512),
+                                      (300, 300, 2, 512)])
+def test_cuda_layout_pass_matches_plain_layout(n, w, c, bn):
+    """The kernel's layout pass equals to_item_columns / to_weight_planes
+    bit for bit over the rows, and its pad words up to whole stages are
+    zero, so a layout fault shows apart from a counting fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + w)
+    tx, _, _ = random_problem(rng, n, 1, w, c)
+    wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c),
+                       dtype=np.int64).astype(np.int32)
+    t_tx, t_w = [t.to(dev) for t in _t(tx, wts)]
+    got = ops.bit_slice(t_tx, t_w, block_n=bn)
+    planes, live = to_weight_planes(t_w.cpu(), got.stage_words)
+    want = (to_item_columns(t_tx.cpu()), planes[:, 0], heavy_rows(planes))
+    words = -(-n // 32)
+    for i, (g, x) in enumerate(zip(got[:3], want)):
+        g = g.view(torch.int32).cpu()
+        assert torch.equal(g[..., :words], x.view(torch.int32))
+        pad = g[..., words:]
+        if i == 0:                          # the all-ones column pads with ones
+            assert not pad[:-1].any() and (pad[-1] == -1).all()
+        else:
+            assert not pad.any()
+    assert torch.equal(got.live.view(torch.int32).cpu(),
+                       live.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,w,c,big", [(5000, 60, 3, 2, False),
+                                         (3001, 50, 2, 5, True),
+                                         (999, 40, 300, 2, False)])
+def test_cuda_kernel_knobs_and_wide_targets(n, k, w, c, big):
+    """Every block_k in [1, 1024] and block_n >= 1 gives the same counts,
+    also for targets of more than 8 items (the general loop) and for W too
+    wide for a stage in shared memory; weights span the int32 range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    tx, tgt, wts, rng = _sliced_problem(n, k, w, c, "full", n + k)
+    if big:
+        tgt[2:] = tx[:k - 2] & rng.integers(0, 2 ** 32, size=(k - 2, w),
+                                             dtype=np.uint32)
+    args = [t.to(dev) for t in _t(tx, tgt, wts)]
+    want = itemset_counts(*args, use_kernel=False)
+    for bk in (1, 32, 96, 1024):
+        for bn in (1, 100, 4096):
+            got = itemset_counts(*args, block_k=bk, block_n=bn)
+            assert torch.equal(got, want), (bk, bn)
