@@ -38,11 +38,20 @@ phase, and fail on the first phase that fails.
    oracle.
 7. The tensor-core kernel (K2, ``accum="mxu_f32"``) against its plain
    version (``torch.equal``): phase 2's shapes in plain and accumulate
-   mode, full-range int32 weights against K1's plain version, launch knobs,
-   the near-2^24 case, and the three main-path geometries.
-8. K2's timing at the main-path geometries beside K1's from phase 3, its
-   bound (``kernel_model.py`` with ``accum="mxu_f32"``) and its plain
-   version's.
+   mode, full-range int32 weights against K1's plain version, launch knobs
+   (``block_n`` sets K2's stage too), the near-2^24 case, and the three
+   main-path geometries; then K2's layout pass (``ops.bit_slice(...,
+   accum="mxu_f32")``) against ``ref.to_item_columns`` /
+   ``ref.to_weight_planes`` / ``ref.whole_masks`` bit for bit, pad words
+   zero.
+8. The b1 product alone (``b1_probe.b1_tile`` against ``ref.b1_tile_ref``
+   on random tiles) and its rate on the card (``b1_probe.mma_rate``, b1
+   and u8, printed beside the model's constant); the main-path DB's live
+   weight planes P and live plane words; then K2's timing at the main-path
+   geometries beside K1's from phase 3, its layout pass and count kernel
+   apart (``torch.profiler``), its bound (``kernel_model.py`` with
+   ``accum="mxu_f32"`` and the live plane words) with the first K2's
+   byte-plane bound beside it, and its plain version's time.
 9. The autotune sweep on the card: ``repro_torch.launch.autotune --preset
    main`` into ``build/autotune/``, every candidate's time, the table's
    round trip through the loader and the derived chooser thresholds.
@@ -55,7 +64,8 @@ phase, and fail on the first phase that fails.
     frequent set, and the launcher's ``--backend auto --verify`` and
     ``--backend gfp --verify`` at 200,000 rows against the host oracle.
 
-The last two lines are the kernels' JSON record and
+The last lines are the card's name and power limit, the kernels' JSON
+record (K1, K2 and K3, the accumulate-into launch) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -226,12 +236,16 @@ def main() -> int:
 
     from repro_torch import obs
     from repro_torch.kernels import _build
-    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.kernels.itemset_count import b1_probe, ops
     from repro_torch.kernels.itemset_count.ops import (itemset_counts,
                                                        itemset_counts_into)
-    from repro_torch.kernels.itemset_count.ref import (heavy_rows,
+    from repro_torch.kernels.itemset_count.ref import (b1_tile_ref,
+                                                       heavy_rows,
+                                                       live_plane_words,
+                                                       live_planes,
                                                        to_item_columns,
-                                                       to_weight_planes)
+                                                       to_weight_planes,
+                                                       whole_masks)
     from repro_torch.roofline import autotune, kernel_model
 
     dev = torch.device("cuda")
@@ -252,8 +266,10 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
     tb = time.perf_counter()
+    sources = (ops.SOURCE, ops.SOURCE_MXU, b1_probe.SOURCE)
+    _build.build_all(sources)
     ops.build()
-    for src in (ops.SOURCE, ops.SOURCE_MXU):
+    for src in sources:
         log = _build.BUILD_LOGS.get(src.stem, "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
@@ -262,7 +278,7 @@ def main() -> int:
               f"{_build.library_path(src).relative_to(ROOT)}; ptxas: "
               f"{len(regs)} kernels, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers, {spills} spill bytes")
-    print(f"   both built in parallel and loaded in "
+    print(f"   all {len(sources)} built in parallel and loaded in "
           f"{time.perf_counter() - tb:.3f} s")
     autotune.set_active_table(None)      # untuned until phase 9
     _done(t0)
@@ -548,6 +564,16 @@ def main() -> int:
         prof.export_chrome_trace(str(trace))
         kern, h2d = _device_intervals(trace)
         pl["k3_wall_ms"] = walls[False]
+        acc = torch.zeros((pl["k"], 2), dtype=torch.int32, device=dev)
+
+        def plain_sweep():
+            acc.zero_()
+            for s0 in range(0, u, STREAM_CHUNK_ROWS):
+                itemset_counts_into(acc, tx_d[s0:s0 + STREAM_CHUNK_ROWS],
+                                    tgt_d, w_d[s0:s0 + STREAM_CHUNK_ROWS],
+                                    use_kernel=False)
+
+        pl["k3_plain_ms"] = _time_ms(plain_sweep, 1, 0)
         line = (f"   {label}: K={pl['k']}, {n_chunks} chunks: sweep "
                 f"{walls[True]:.3f} ms wall with kernel timing on, "
                 f"{walls[False]:.3f} ms off (median of 3; one dense launch "
@@ -585,30 +611,36 @@ def main() -> int:
     def run(label, **kw):
         lv0 = levels_total()
         ops.KERNEL_LAUNCHES = 0
+        ops.KERNEL_LAUNCHES_INTO = 0
         t = time.perf_counter()
         res = minority_report_dense(
             tx_rows, y, min_support=MAIN["min_support"],
             min_confidence=MAIN["min_conf"], device=dev, **kw)
         torch.cuda.synchronize()
         launches = ops.KERNEL_LAUNCHES
+        into = ops.KERNEL_LAUNCHES_INTO
         levels = int(levels_total() - lv0)
         print(f"   {label}: {res.engine} engine, {len(res.rules)} rules, "
               f"{levels} levels, kernel launches measured {launches} "
-              f"(result field {res.kernel_launches}), "
+              f"(result field {res.kernel_launches}; {into} of them "
+              f"accumulate-into), "
               f"{time.perf_counter() - t:.3f} s", flush=True)
-        return res, launches, levels
+        return res, launches, levels, into
 
-    dense, dense_launches, levels = run("dense")
+    dense, dense_launches, levels, _ = run("dense")
     if dense_launches != (levels - 1) + 1:
         raise AssertionError(f"dense: {dense_launches} launches, expected "
                              f"{levels - 1} kernel-counted levels + 1")
-    streamed, stream_launches, s_levels = run(
+    streamed, stream_launches, s_levels, into_launches = run(
         "streamed", streaming=True, chunk_rows=STREAM_CHUNK_ROWS)
+    if into_launches == 0:          # K3: the streamed sweep's launches
+        raise AssertionError("the streamed main path launched no "
+                             "accumulate-into kernel (K3)")
     if stream_launches != n_chunks * (s_levels + 1):
         raise AssertionError(f"streamed: {stream_launches} launches, "
                              f"expected {n_chunks} chunks x "
                              f"({s_levels} levels + 1)")
-    plain, plain_launches, _ = run("plain version", use_kernel=False)
+    plain, plain_launches, _, _ = run("plain version", use_kernel=False)
     if plain_launches != 0:
         raise AssertionError(f"plain run launched the kernel "
                              f"{plain_launches} times")
@@ -691,7 +723,9 @@ def main() -> int:
         arrs = [torch.from_numpy(a).to(dev)
                 for a in _random_problem(rng, n, k, w, c)]
         want = itemset_counts(*arrs, use_kernel=False, accum="mxu_f32")
-        for bk, bn in itertools.product((1, 32, 96, 1024), (1, 4096)):
+        # block_n sets K2's stage: 1024 rows and below, just above, 4096
+        for bk, bn in itertools.product((1, 32, 96, 1024),
+                                        (1, 96, 1025, 4096)):
             check_mxu(*arrs, f"N={n} K={k} block_k={bk} block_n={bn}",
                       want=want, block_k=bk, block_n=bn)
             n_mxu_knobs += 1
@@ -711,42 +745,117 @@ def main() -> int:
           f"accumulate, 5 full-range weight shapes, {n_mxu_knobs} launch "
           f"knob settings, near 2^24 = {(1 << 24) - 8}, the 3 main-path "
           f"geometries plain and accumulate): equal, max abs err {mxu_err}")
+    # K2's layout pass against its plain version, bit for bit
+    n_planes = 0
+    for n, _, w, c in shapes + [(999, 0, 300, 2), (u, 0, w_words, 2)]:
+        if n == u:
+            tx, wts = tx_d, w_d
+        else:
+            tx, _, _ = _random_problem(rng, n, 1, w, c)
+            wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c),
+                               dtype=np.int64).astype(np.int32)
+            tx, wts = (torch.from_numpy(a).to(dev) for a in (tx, wts))
+        for bn in (512, 100) if n != u else (512,):
+            got = ops.bit_slice(tx, wts, block_n=bn, accum="mxu_f32")
+            planes, live = to_weight_planes(wts, got.stage_words)
+            words = -(-n // 32)
+            cols = got.columns.view(torch.int32)
+            pl = got.planes.view(torch.int32)
+            ok = (torch.equal(cols[:, :words],
+                              to_item_columns(tx).view(torch.int32))
+                  and not cols[:-1, words:].any()
+                  and bool((cols[-1, words:] == -1).all())
+                  and torch.equal(pl[..., :words], planes.view(torch.int32))
+                  and not pl[..., words:].any()
+                  and torch.equal(got.live.view(torch.int32),
+                                  live.view(torch.int32))
+                  and torch.equal(got.whole.view(torch.int32),
+                                  whole_masks(wts).view(torch.int32)))
+            if not ok:
+                raise AssertionError(f"K2 layout pass != plain version at "
+                                     f"N={n} W={w} C={c} block_n={bn}")
+            n_planes += 1
+    print(f"   K2 layout pass == to_item_columns / to_weight_planes / "
+          f"whole_masks bit for bit: {n_planes} layouts (the main-path DB "
+          f"included), pad words zero")
     _done(t0)
 
     # ---- 8. K2 timing --------------------------------------------------------
-    t0 = _phase("8. K2 timing at the main-path geometries")
+    t0 = _phase("8. the b1 product and K2 timing at the main-path geometries")
     obs.configure(kernel_timing=False)
+    n_tiles = 0
+    for _ in range(8):
+        a, b = (torch.from_numpy(rng.integers(0, 2 ** 32, size=shape,
+                                              dtype=np.uint32).view(np.int32))
+                .to(dev).view(torch.uint32) for shape in ((16, 8), (8, 8)))
+        if not torch.equal(b1_probe.b1_tile(a, b), b1_tile_ref(a, b)):
+            raise AssertionError("b1 mma.sync tile != popc")
+        n_tiles += 1
+    b1_rate = b1_probe.mma_rate(True)
+    u8_rate = b1_probe.mma_rate(False)
+    whole = whole_masks(w_d)
+    n_live = int(live_planes(whole).numel())
+    plane_words = live_plane_words(w_d)
+    print(f"   b1 mma.sync.m16n8k256 and.popc == popc on {n_tiles} random "
+          f"tiles; measured mma.sync rates: b1 {b1_rate:.4e} bit op/s, u8 "
+          f"m16n8k32 {u8_rate:.4e} op/s, b1/u8 {b1_rate / u8_rate:.3f} "
+          f"(the model's b1 rate: 8 x the card's int8 rate = "
+          f"{kernel_model.PEAK_B1_TENSOR_OPS:.4e}; mma.sync reaches "
+          f"{b1_rate / kernel_model.PEAK_B1_TENSOR_OPS:.3f} of it)")
+    print(f"   main-path weights: whole-launch masks "
+          f"{[hex(int(x) & 0xFFFFFFFF) for x in whole.view(torch.int32)]}, "
+          f"P = {n_live} live planes; live plane words {plane_words} of "
+          f"{n_live * -(-u // 32)} (P in every row-word), "
+          f"{plane_words / -(-u // 32):.3f} planes a row-word on average")
     per_launch_mxu = []
     for (label, tgt_d), pl in zip(tgts, per_launch):
         k = tgt_d.shape[0]
-        ms = _batch_ms(lambda: itemset_counts(tx_d, tgt_d, w_d,
-                                              accum="mxu_f32"), KERNEL_RUNS)
+
+        def k2():
+            return itemset_counts(tx_d, tgt_d, w_d, accum="mxu_f32")
+
+        ms = _batch_ms(k2, KERNEL_RUNS)
+        parts = _profiled_ms(k2, KERNEL_RUNS, ROOT / "build" / "traces" /
+                             f"k2_{label.split()[0]}.json",
+                             ("layout_kernel", "count_mxu_kernel"))
         plain_ms = _time_ms(
             lambda: itemset_counts(tx_d, tgt_d, w_d, use_kernel=False,
                                    accum="mxu_f32"), PLAIN_RUNS, 1)
         sizes = _target_sizes(tgt_d)
         bound_ms = kernel_model.predicted_seconds(
-            u, k, w_words, 2, accum="mxu_f32", target_sizes=sizes) * 1e3
-        tensor_ms = kernel_model.tensor_ops(
-            u, k, 2) / kernel_model.PEAK_INT8_TENSOR_OPS * 1e3
+            u, k, w_words, 2, accum="mxu_f32", target_sizes=sizes,
+            plane_words=plane_words) * 1e3
+        b1_ms = kernel_model.b1_ops(k, plane_words) \
+            / kernel_model.PEAK_B1_TENSOR_OPS * 1e3
+        and_ms = kernel_model.and_ops(u, k, sizes) \
+            / kernel_model.PEAK_INT32_OPS * 1e3
         by = kernel_model.bound_by(u, k, w_words, 2, accum="mxu_f32",
-                                   target_sizes=sizes)
-        # the horizontal model's bound: one LOP3 per word and pair
-        hbound_ms = max(kernel_model.horizontal_flops(u, k, w_words, 2)
-                        / kernel_model.PEAK_INT32_OPS * 1e3, bound_ms)
-        per_launch_mxu.append(dict(geometry=label, n=u, k=k, w=w_words, c=2,
-                                   ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=by,
-                                   horizontal_bound_ms=hbound_ms,
-                                   tensor_ms=tensor_ms, k1_ms=pl["ms"]))
+                                   target_sizes=sizes,
+                                   plane_words=plane_words)
+        # the first K2's bound: the byte-plane product at the int8 rate
+        bp_ms = kernel_model.byte_plane_seconds(u, k, w_words, 2,
+                                                target_sizes=sizes) * 1e3
+        per_launch_mxu.append(dict(
+            geometry=label, n=u, k=k, w=w_words, c=2, planes=n_live,
+            plane_words=plane_words, ms=ms,
+            prep_ms=parts["layout_kernel"],
+            count_ms=parts["count_mxu_kernel"], plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, b1_ms=b1_ms, and_ms=and_ms,
+            byte_plane_bound_ms=bp_ms, k1_ms=pl["ms"]))
         print(f"   {label}: N={u} K={k}: K2 {ms:.4f} ms (median of 3 "
-              f"batches of {KERNEL_RUNS}), K1 {pl['ms']:.4f} ms (phase 3), K2/K1 "
-              f"{ms / pl['ms']:.2f}; K2 bound {bound_ms:.4f} ms ({by}; "
-              f"tensor term {tensor_ms:.4f} ms), K2/bound "
-              f"{ms / bound_ms:.2f}; horizontal bound {hbound_ms:.4f} ms, "
-              f"K2/horizontal bound {ms / hbound_ms:.2f}; plain mxu_f32 "
-              f"{plain_ms:.3f} ms "
-              f"(median of {PLAIN_RUNS})")
+              f"batches of {KERNEL_RUNS}), of which the layout pass "
+              f"{parts['layout_kernel'] or float('nan'):.4f} ms and the count "
+              f"kernel {parts['count_mxu_kernel'] or float('nan'):.4f} ms "
+              f"(profiled); K1 {pl['ms']:.4f} ms (phase 3), K2/K1 "
+              f"{ms / pl['ms']:.2f}; K2 bound {bound_ms:.4f} ms ({by}; AND "
+              f"term {and_ms:.4f} ms, b1 term {b1_ms:.4f} ms), K2/bound "
+              f"{ms / bound_ms:.2f}; byte-plane bound {bp_ms:.4f} ms, "
+              f"K2/byte-plane bound {ms / bp_ms:.2f}; plain mxu_f32 "
+              f"{plain_ms:.3f} ms (median of {PLAIN_RUNS})")
+        if ms < bound_ms:
+            raise AssertionError(f"{label}: K2 {ms:.4f} ms below its bound "
+                                 f"{bound_ms:.4f} ms: the bound's count is "
+                                 f"wrong")
     obs.configure(kernel_timing=True)
     _done(t0)
 
@@ -893,8 +1002,6 @@ def main() -> int:
         "prep_ms": sum(p["prep_ms"] for p in per_launch),
         "horizontal_bound_ms": sum(p["horizontal_bound_ms"]
                                    for p in per_launch),
-        "launches_streamed": stream_launches,
-        "bound_ms_streamed": sum(p["k3_bound_ms"] for p in per_launch),
         "per_launch": per_launch,
     }, {
         "name": "itemset_count_mxu",
@@ -910,10 +1017,34 @@ def main() -> int:
         "bound_ms": sum(p["bound_ms"] for p in per_launch_mxu),
         "bound_by": per_launch_mxu[1]["bound_by"],
         "library_ms": None,
-        "horizontal_bound_ms": sum(p["horizontal_bound_ms"]
+        "prep_ms": sum(p["prep_ms"] or 0.0 for p in per_launch_mxu),
+        "count_ms": sum(p["count_ms"] or 0.0 for p in per_launch_mxu),
+        "byte_plane_bound_ms": sum(p["byte_plane_bound_ms"]
                                    for p in per_launch_mxu),
+        "planes": n_live,
+        "plane_words": plane_words,
+        "b1_rate": b1_rate,
+        "u8_rate": u8_rate,
         "launches_streamed": k3_mxu["mxu_f32"],
         "per_launch": per_launch_mxu,
+    }, {
+        "name": "itemset_count_into",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/itemset_count/csrc/"
+                  "itemset_count.cu (accumulate = 1)",
+        "replaces": "src/repro/kernels/itemset_count/ops.py:138",
+        # the streamed main path (phase 5): 8 chunks a level
+        "launches": into_launches,
+        "max_abs_err": max_err,
+        # the 8-chunk sweeps at the three geometries: kernels in the trace
+        "ms": (sum(p["k3_kernels_ms"] for p in per_launch)
+               if all("k3_kernels_ms" in p for p in per_launch) else None),
+        "plain_ms": sum(p["k3_plain_ms"] for p in per_launch),
+        "bound_ms": sum(p["k3_bound_ms"] for p in per_launch),
+        "bound_by": per_launch[1]["bound_by"],
+        "library_ms": None,
+        "wall_ms": sum(p["k3_wall_ms"] for p in per_launch),
+        "launches_through_k2": k3_mxu["mxu_f32"],
     }]}
     print(smi)
     print(json.dumps(record))

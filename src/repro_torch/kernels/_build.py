@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` source compiles into its own shared library with a plain C
 interface under ``build/kernels/`` at the repo root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing builds at import: the first launch builds.  A missing
-``nvcc`` or a failed build raises; there is no fallback.
+source, the headers (``*.cuh``) beside it and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  Nothing builds at
+import: the first launch builds.  A missing ``nvcc`` or a failed build
+raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -44,8 +45,11 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
@@ -59,7 +63,8 @@ def build(source: Path) -> Path:
 def build_all(sources: Iterable[Path]) -> None:
     """Compile every source not built yet, one ``nvcc`` each, all started
     together; raises after all have finished if any failed."""
-    todo = [s for s in sources if not library_path(s).exists()]
+    todo = list({library_path(s): s for s in sources
+                 if not library_path(s).exists()}.values())
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -38,14 +38,8 @@
 // several planes live; walking every set bit of h costs a load per
 // contained row.  Both were measured slower, PERF.md.)
 //
-// Layout of the scratch (uint32 words, allocated by the caller):
-//   cols   [32*W + 2 + C][nwp]   item columns, the all-ones column, the heavy
-//                                column, the C odd planes
-//   live   [C][nst]              live planes per stage
-// with sw row-words (32 rows each) per stage, nst = ceil(ceil(N/32) / sw)
-// stages and nwp = nst * sw; pad rows are zero in every column but the
-// all-ones one.  This file alone owns the layout and the stage geometry:
-// itemset_count_geometry gives the wrapper the sizes and offsets.
+// The layout, its stage geometry and the layout pass are bitslice.cuh's
+// (route kRouteVpu), shared with K2 (itemset_count_mxu.cu).
 //
 // The count kernel.  A CTA owns block_k targets, one thread each (the CTA
 // runs ceil(block_k / 32) warps; threads past block_k only help with the
@@ -74,220 +68,18 @@
 //
 // The knobs.  block_k is any value in [1, 1024].  block_n is any value >= 1:
 // the stage is ceil(block_n / 32) row-words rounded up to a multiple of 4
-// (128 rows), no more than the rows need, and halved (rounded up to a
-// multiple of 4) until the four stage buffers fit in 227 KB.
+// (128 rows), as bitslice.cuh sets it.
 //
 // Left for later: sharing the AND of a common prefix of items across
 // targets (lexicographic candidates share all but their last item), copying
 // only the columns a CTA's targets use, TMA multicast of the stage to the
 // CTAs of a cluster, a carry-save (Harley-Seal) reduction that pays fewer
-// POPCs for several classes, and the b1 tensor-core product
-// (mma.sync ... b1.and.popc) for the popcounts.
+// POPCs for several classes.  (K2, itemset_count_mxu.cu, reduces the same
+// AND words with the b1 tensor-core product.)
 
-#include <cstdint>
-#include <map>
-#include <mutex>
-#include <tuple>
-#include <type_traits>
-#include <utility>
-
-#include <cuda_runtime.h>
+#include "bitslice.cuh"
 
 namespace {
-
-constexpr int kMaxSmemBytes = 227 * 1024;
-constexpr int kClassGroup = 4;   // classes per sweep when C > 2
-constexpr int kBuffers = 2;      // stage buffers: one counted, one copying
-constexpr int kMinWaves = 4;     // waves of resident CTAs a count splits into
-
-struct Problem {
-  const uint32_t* tx;   // (n, nw)
-  const int32_t* wts;   // (n, nc)
-  const uint32_t* tgt;  // (k, nw)
-  int32_t* out;         // (k, nc)
-  long long n, k;
-  int nw, nc;
-};
-
-struct Sliced {
-  uint32_t* cols;       // (ncols + 1 + nc, nwp): items, all-ones, heavy, odd
-  uint32_t* live;       // (nc, nst)
-  long long nwp;        // row-words, padded to whole stages
-  int nst;              // stages
-  int sw;               // row-words per stage, a multiple of 4
-  int ncols;            // item columns and the all-ones one: 32 * nw + 1
-};
-
-struct Geometry {
-  int sw, nst, cg, swp;
-  long long nwp;
-  bool staged;
-  size_t smem;
-};
-
-long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-
-// Words between two staged columns: >= sw and 4 mod 8.
-int padded_stride(int sw) { return (sw / 4) % 2 == 0 ? sw + 4 : sw; }
-
-int class_group(int nc) { return nc <= 2 ? nc : kClassGroup; }
-
-// The stage buffers: the item columns, the all-ones and heavy columns and
-// the odd planes of a class group.
-size_t stage_smem(int nw, int cg, int sw) {
-  return (size_t)kBuffers * (32 * nw + 2 + cg) * padded_stride(sw) * 4;
-}
-
-Geometry geometry(long long n, int nw, int nc, int block_n) {
-  Geometry g;
-  g.cg = class_group(nc);
-  long long words = cdiv(n, 32);
-  long long sw = cdiv(cdiv(block_n, 32), 4) * 4;
-  const long long need = cdiv(words, 4) * 4;
-  if (sw > need) sw = need;
-  if (sw < 4) sw = 4;
-  while (sw > 4 && stage_smem(nw, g.cg, (int)sw) > (size_t)kMaxSmemBytes)
-    sw = cdiv(sw / 2, 4) * 4;
-  g.sw = (int)sw;
-  g.swp = padded_stride(g.sw);
-  g.nst = (int)cdiv(words, sw);
-  g.nwp = (long long)g.nst * sw;
-  g.smem = stage_smem(nw, g.cg, g.sw);
-  g.staged = g.smem <= (size_t)kMaxSmemBytes;
-  if (!g.staged) g.smem = 0;
-  return g;
-}
-
-long long scratch_words(long long n, int nw, int nc, const Geometry& g) {
-  return (long long)(32 * nw + 2 + nc) * g.nwp + (long long)nc * g.nst;
-}
-
-Sliced sliced_view(uint32_t* scratch, int nw, int nc, const Geometry& g) {
-  Sliced s;
-  s.ncols = 32 * nw + 1;
-  s.nwp = g.nwp;
-  s.nst = g.nst;
-  s.sw = g.sw;
-  s.cols = scratch;
-  s.live = scratch + (long long)(s.ncols + 1 + nc) * g.nwp;
-  return s;
-}
-
-// ---- layout pass --------------------------------------------------------
-
-// One CTA of 32 warps turns 32 row-words (1024 rows) into column words: warp
-// w ballots the bits of rows 32*(j0 + w) + lane, and a 32 x 32 tile in
-// shared memory turns the ballots around so that the stores are coalesced.
-__global__ void __launch_bounds__(1024) layout_kernel(Problem p, Sliced s) {
-  __shared__ uint32_t tile[32][33];
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const long long j0 = (long long)blockIdx.x * 32;
-  const long long j = j0 + wid;             // this warp's row-word
-  const long long r = j * 32 + lane;        // this thread's row
-  const bool in = r < p.n;
-  const long long jo = j0 + lane;           // this thread's stored word
-  const bool out_ok = jo < s.nwp;
-  for (int i = 0; i < p.nw; ++i) {
-    const uint32_t x = in ? __ldg(p.tx + r * p.nw + i) : 0u;
-    uint32_t mine = 0;
-#pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      const uint32_t v = __ballot_sync(0xffffffffu, (x >> b) & 1u);
-      if (lane == b) mine = v;
-    }
-    tile[lane][wid] = mine;                 // column 32i + lane, word j
-    __syncthreads();
-    if (out_ok) s.cols[(32LL * i + wid) * s.nwp + jo] = tile[wid][lane];
-    __syncthreads();
-  }
-  if (wid == 0 && out_ok) s.cols[(32LL * p.nw) * s.nwp + jo] = 0xffffffffu;
-  // the weights: odd planes, the heavy column, live masks; one word per
-  // warp, stored by its lane 0
-  uint32_t heavy = 0;
-  for (int c = 0; c < p.nc; ++c) {
-    const uint32_t x = in ? (uint32_t)__ldg(p.wts + r * p.nc + c) : 0u;
-    const uint32_t odd = __ballot_sync(0xffffffffu, x & 1u);
-    heavy |= __ballot_sync(0xffffffffu, (x & ~1u) != 0u);
-    const uint32_t any = __reduce_or_sync(0xffffffffu, x);
-    if (lane == 0 && j < s.nwp) {
-      s.cols[(s.ncols + 1LL + c) * s.nwp + j] = odd;
-      if (any != 0) atomicOr(s.live + (long long)c * s.nst + j / s.sw, any);
-    }
-  }
-  if (lane == 0 && j < s.nwp) s.cols[(long long)s.ncols * s.nwp + j] = heavy;
-}
-
-// ---- count kernel -------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of the most recent copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint4 ld4(const uint32_t* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// The count kernel's stage buffers.  Indexed by word offsets (not generic
-// pointers), so that its loads compile to LDS with 32-bit addresses.
-extern __shared__ __align__(16) uint32_t g_stage[];
-
-// Where a stage's columns are read: the stage buffers in shared memory
-// (offsets in words from g_stage) or device memory (offsets in words from
-// the scratch's column 0).
-template <bool STAGED>
-struct Cols;
-
-template <>
-struct Cols<true> {
-  using Off = int;
-  __device__ __forceinline__ uint4 at(int off) const {
-    return *reinterpret_cast<const uint4*>(g_stage + off);
-  }
-};
-
-template <>
-struct Cols<false> {
-  using Off = long long;
-  const uint32_t* base;
-  __device__ __forceinline__ uint4 at(long long off) const {
-    return ld4(base + off);
-  }
-};
-
-__device__ __forceinline__ void and4(uint4& h, const uint4& v) {
-  h.x &= v.x;
-  h.y &= v.y;
-  h.z &= v.z;
-  h.w &= v.w;
-}
-
-// Copy stage `st` into the buffer `buf`: the item, all-ones and heavy
-// columns, then the odd planes of classes [c0, c0 + gn).
-__device__ void issue_stage(const Sliced& s, uint32_t* buf, int swp, int st,
-                            int c0, int gn) {
-  const int q4 = s.sw / 4;
-  const long long g0 = (long long)st * s.sw;
-  const int lead = s.ncols + 1;
-  for (int i = threadIdx.x; i < (lead + gn) * q4; i += blockDim.x) {
-    const int col = i / q4;
-    const int q = i - col * q4;
-    const long long src = col < lead ? col : col + c0;
-    cp_async16(buf + col * swp + 4 * q, s.cols + src * s.nwp + g0 + 4 * q);
-  }
-}
 
 // acc[c] += popc(h & odd plane of class c0 + c) for the classes whose bit 0
 // is live (lm[c] & 1); that plane lies at offset odd + c * stride.
@@ -327,33 +119,6 @@ __device__ __forceinline__ void add_heavy(const uint4& x, const Problem& p, long
   }
 }
 
-// The AND word of a target of up to S items whose column offsets (from the
-// row-word group's) are off[] (missing items read the all-ones column), or,
-// for S == 0, of any target, walking its words (the general loop).
-template <int S, bool STAGED>
-__device__ __forceinline__ uint4 contained(
-    const Cols<STAGED>& cols, typename Cols<STAGED>::Off q,
-    const typename Cols<STAGED>::Off (&off)[S > 0 ? S : 1],
-    typename Cols<STAGED>::Off stride, const uint32_t* trow, int nw) {
-  if constexpr (S > 0) {
-    uint4 h = cols.at(q + off[0]);
-#pragma unroll
-    for (int i = 1; i < S; ++i) and4(h, cols.at(q + off[i]));
-    return h;
-  } else {
-    uint4 h = make_uint4(~0u, ~0u, ~0u, ~0u);
-    for (int i = 0; i < nw; ++i) {
-      uint32_t m = __ldg(trow + i);
-      while (m) {
-        const int b = __ffs(m) - 1;
-        m &= m - 1;
-        and4(h, cols.at(q + (32 * i + b) * stride));
-      }
-    }
-    return h;
-  }
-}
-
 // One sweep of the CTA's stages [st0, st1) for classes [c0, c0 + gn).
 template <int S, int CG, bool STAGED>
 __device__ void sweep(const Problem& p, const Sliced& s, int swp, bool valid,
@@ -364,28 +129,21 @@ __device__ void sweep(const Problem& p, const Sliced& s, int swp, bool valid,
   const Off stride = (Off)(STAGED ? (long long)swp : s.nwp);
   Off off[S > 0 ? S : 1];
   if constexpr (S > 0) {
-    int wi = valid ? 0 : p.nw;
-    uint32_t m = valid ? __ldg(trow) : 0u;
-#pragma unroll
-    for (int q = 0; q < S; ++q) {
-      while (m == 0 && wi + 1 < p.nw) m = __ldg(trow + ++wi);
-      int col = s.ncols - 1;               // the all-ones column
-      if (m) {
-        col = 32 * wi + __ffs(m) - 1;
-        m &= m - 1;
-      }
-      off[q] = col * stride;
-    }
+    decode_target<S>(trow, valid, p.nw, s.ncols, stride, off);
   } else {
     off[0] = 0;
   }
   if (st0 >= st1) return;
   const int buf_words = (s.ncols + 1 + CG) * swp;
+  // the item, all-ones and heavy columns, then the odd planes of classes
+  // [c0, c0 + gn)
+  const int lead = s.ncols + 1;
+  auto src = [=](int col) -> long long { return col < lead ? col : col + c0; };
   if constexpr (STAGED) {
 #pragma unroll
     for (int i = 0; i < kBuffers - 1; ++i) {
       if (st0 + i < st1)
-        issue_stage(s, g_stage + i * buf_words, swp, st0 + i, c0, gn);
+        issue_stage(s, g_stage + i * buf_words, swp, st0 + i, lead + gn, src);
       cp_async_commit();
     }
   }
@@ -399,7 +157,7 @@ __device__ void sweep(const Problem& p, const Sliced& s, int swp, bool valid,
       const int next = st + kBuffers - 1;
       if (next < st1)
         issue_stage(s, g_stage + ((next - st0) % kBuffers) * buf_words, swp,
-                    next, c0, gn);
+                    next, lead + gn, src);
       cp_async_commit();
       base = ((st - st0) % kBuffers) * buf_words;
       odd = (s.ncols + 1) * stride;
@@ -444,9 +202,7 @@ count_kernel(Problem p, Sliced s, int block_k, int stages_per_cta, int swp) {
   const long long kk = (long long)blockIdx.x * block_k + threadIdx.x;
   const bool valid = (int)threadIdx.x < block_k && kk < p.k;
   const uint32_t* trow = p.tgt + (valid ? kk : 0) * p.nw;
-  int size = 0;
-  if (valid)
-    for (int i = 0; i < p.nw; ++i) size += __popc(__ldg(trow + i));
+  const int size = valid ? target_size(trow, p.nw) : 0;
   if (threadIdx.x == 0) s_max = 0;
   __syncthreads();
   if (valid) atomicMax(&s_max, size);
@@ -473,81 +229,6 @@ count_kernel(Problem p, Sliced s, int block_k, int stages_per_cta, int swp) {
   }
 }
 
-cudaError_t launch_layout(const Problem& p, const Sliced& s,
-                          cudaStream_t stream) {
-  cudaError_t e = cudaMemsetAsync(s.live, 0, (size_t)p.nc * s.nst * 4, stream);
-  if (e != cudaSuccess) return e;
-  layout_kernel<<<(unsigned)cdiv(s.nwp, 32), 1024, 0, stream>>>(p, s);
-  return cudaGetLastError();
-}
-
-// The host work of a count launch that depends only on the launch's shape,
-// done once per shape: the kernel's shared-memory attribute (raised, never
-// lowered, per device) and the split of the stages over gridDim.y.
-std::mutex g_mu;
-std::map<std::pair<int, const void*>, size_t> g_smem_set;
-std::map<std::tuple<int, const void*, int, size_t, long long, int>, int>
-    g_per_cta;
-
-// Split the stages over gridDim.y into at least kMinWaves waves of resident
-// CTAs (CTAs take unequal times: heavy rows and hits cluster), the fewest
-// splits whose last wave is at least 90 % full, else the fullest (each CTA
-// ends with block_k * C atomics).  Returns the stages per CTA.
-int stages_per_cta(long long wave, long long grid_x, int nst) {
-  long long most = 4 * cdiv(kMinWaves * wave, grid_x);
-  if (most > nst) most = nst;
-  if (most > 65535) most = 65535;
-  int per_cta = nst;
-  double best = -1.0;
-  for (long long splits = 1; splits <= most; ++splits) {
-    const int pc = (int)cdiv(nst, splits);
-    const long long ctas = grid_x * cdiv(nst, pc);
-    const double fill = (double)ctas / (double)(cdiv(ctas, wave) * wave);
-    const bool enough = ctas > (kMinWaves - 1) * wave;
-    const double score = fill + (enough ? 1.0 : 0.0) + (fill >= 0.9 ? 1.0 : 0.0);
-    if (score > best + 1e-9) {
-      best = score;
-      per_cta = pc;
-      if (enough && fill >= 0.9) break;
-    }
-  }
-  return per_cta;
-}
-
-template <typename Kernel>
-cudaError_t prepare_count(Kernel kernel, int threads, size_t smem,
-                          long long grid_x, int nst, int* per_cta) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(g_mu);
-  const auto key = std::make_tuple(dev, fn, threads, smem, grid_x, nst);
-  const auto hit = g_per_cta.find(key);
-  if (hit != g_per_cta.end()) {
-    *per_cta = hit->second;
-    return cudaSuccess;
-  }
-  size_t& set = g_smem_set[{dev, fn}];
-  if (smem > 48 * 1024 && smem > set) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
-    set = smem;
-  }
-  int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const long long wave = (long long)sms * (per_sm < 1 ? 1 : per_sm);
-  *per_cta = stages_per_cta(wave, grid_x, nst);
-  if (g_per_cta.size() >= 4096) g_per_cta.clear();   // stays small
-  g_per_cta[key] = *per_cta;
-  return cudaSuccess;
-}
-
 template <int CG, bool STAGED>
 cudaError_t launch_count_t(const Problem& p, const Sliced& s, const Geometry& g,
                            int block_k, cudaStream_t stream) {
@@ -572,52 +253,24 @@ cudaError_t launch_count_cg(const Problem& p, const Sliced& s,
   return launch_count_t<CG, false>(p, s, g, block_k, stream);
 }
 
-Problem problem(const void* tx, const void* wts, long long n, int nw, int nc) {
-  Problem p{};
-  p.tx = static_cast<const uint32_t*>(tx);
-  p.wts = static_cast<const int32_t*>(wts);
-  p.n = n;
-  p.nw = nw;
-  p.nc = nc;
-  return p;
-}
-
 }  // namespace
 
 extern "C" {
 
-// K1's layout of n rows for block_n, in uint32 words: out[0] row-words per
-// stage (sw), out[1] stages (nst), out[2] row-words padded to whole stages
-// (nwp), out[3] the scratch's length, out[4..6] the offsets of the heavy
-// column, the first odd plane and the live masks (the 32 * nw + 1 item and
-// all-ones columns start at 0).  Returns the cudaError_t.
-int itemset_count_geometry(long long n, int nw, int nc, int block_n,
+// The layout of n rows for block_n on route (0: K1, 1: K2): geometry_report
+// of bitslice.cuh.
+int itemset_count_geometry(long long n, int nw, int nc, int block_n, int route,
                            long long* out) {
-  if (n < 1 || nw < 1 || nc < 1 || block_n < 1) return (int)cudaErrorInvalidValue;
-  const Geometry g = geometry(n, nw, nc, block_n);
-  const long long ncols = 32LL * nw + 1;
-  out[0] = g.sw;
-  out[1] = g.nst;
-  out[2] = g.nwp;
-  out[3] = scratch_words(n, nw, nc, g);
-  out[4] = ncols * g.nwp;
-  out[5] = (ncols + 1) * g.nwp;
-  out[6] = (ncols + 1 + nc) * g.nwp;
-  return (int)cudaSuccess;
+  return geometry_report(n, nw, nc, block_n, route, out);
 }
 
-// The layout pass alone: writes cols and live into `scratch`
-// (scratch_words of them) on `stream`; returns the cudaError_t.
+// K1's layout pass alone: writes its columns and live masks into `scratch`
+// (out[3] of the geometry) on `stream`; returns the cudaError_t.
 int itemset_count_layout(const void* tx, const void* wts, void* scratch,
                          long long scratch_len, long long n, int nw, int nc,
                          int block_n, void* stream_ptr) {
-  if (n < 1 || nw < 1 || nc < 1 || block_n < 1)
-    return (int)cudaErrorInvalidValue;
-  const Geometry g = geometry(n, nw, nc, block_n);
-  if (scratch_len < scratch_words(n, nw, nc, g)) return (int)cudaErrorInvalidValue;
-  const Problem p = problem(tx, wts, n, nw, nc);
-  const Sliced s = sliced_view(static_cast<uint32_t*>(scratch), nw, nc, g);
-  return (int)launch_layout(p, s, static_cast<cudaStream_t>(stream_ptr));
+  return layout_only<kRouteVpu>(tx, wts, scratch, scratch_len, n, nw, nc,
+                                block_n, stream_ptr);
 }
 
 // One count: the layout pass, then the count kernel, on `stream`.  With
@@ -637,14 +290,16 @@ int itemset_count_launch(const void* tx, const void* tgt, const void* wts,
     if (e != cudaSuccess) return (int)e;
   }
   if (n == 0 || k == 0) return (int)cudaSuccess;
-  const Geometry g = geometry(n, nw, nc, block_n);
-  if (scratch_len < scratch_words(n, nw, nc, g)) return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(n, nw, nc, block_n, kRouteVpu);
+  if (scratch_len < scratch_words(nw, nc, g, kRouteVpu))
+    return (int)cudaErrorInvalidValue;
   Problem p = problem(tx, wts, n, nw, nc);
   p.tgt = static_cast<const uint32_t*>(tgt);
   p.out = static_cast<int32_t*>(out);
   p.k = k;
-  const Sliced s = sliced_view(static_cast<uint32_t*>(scratch), nw, nc, g);
-  cudaError_t e = launch_layout(p, s, stream);
+  const Sliced s =
+      sliced_view(static_cast<uint32_t*>(scratch), nw, nc, g, kRouteVpu);
+  cudaError_t e = launch_layout<kRouteVpu>(p, s, stream);
   if (e != cudaSuccess) return (int)e;
   if (g.cg == 1) e = launch_count_cg<1>(p, s, g, block_k, stream);
   else if (g.cg == 2) e = launch_count_cg<2>(p, s, g, block_k, stream);

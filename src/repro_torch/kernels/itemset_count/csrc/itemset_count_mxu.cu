@@ -1,5 +1,5 @@
 // Multitude-targeted itemset counting on Hopper (sm_90a), with the weighted
-// reduction on the tensor cores.
+// reduction as a b1 AND + POPC product on the tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/itemset_count/kernel.py
 // (_itemset_count_kernel with accum="mxu_f32", kernel.py:53-60: the weighted
@@ -12,254 +12,350 @@
 // tx (N, W) uint32 row-major, tgt (K, W) uint32, w (N, C) int32, out (K, C)
 // int32 -- the same function and layouts as itemset_count.cu (K1).
 //
-// An f32 product on the tensor cores is TF32 here, which keeps 10 mantissa
-// bits and would round integer weights.  The reduction is done exactly in
-// integers instead:
-//   * containment on the CUDA cores, as in K1: one thread per target, its W
-//     words in registers (W <= 4) or read through the L1 cache (any other
-//     W), rows staged in shared memory.  Each thread writes its target's
-//     0/1 containment bytes for the staged rows into shared memory, laid out
-//     as the A operand (targets x rows, row-major);
-//   * each int32 weight is split into 4 byte planes, so B is rows x (4 * C)
-//     uint8 columns (column c * 4 + p = byte p of class c), zero-padded to a
-//     multiple of 8 columns;
-//   * mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 sums A x B into s32
-//     accumulators: a warp owns 32 targets (two m16 tiles) and walks the
-//     staged rows in k32 steps;
-//   * after each staged step of kRows rows the planes are folded into the
-//     count, p0 + (p1 << 8) + (p2 << 16) + (p3 << 24) in wrapping 32-bit
-//     arithmetic, and the accumulators restart.  A plane's sum over one
-//     step is at most 255 * kRows, far inside s32; unfolded it would reach
-//     255 * N and overflow once a CTA summed about 2^23 rows.  The fold is
-//     exact modulo 2^32 for any int32 weights, so it equals K1's wrapping
-//     int32 sum, and the true count whenever that fits int32 (the weight-
-//     total guards of the streaming sweep and the GFP backend ensure it).
+// The layout.  K1's layout pass (bitslice.cuh, route kRouteMxu) turns the
+// rows into item columns of 32 rows a word and each class's weights into
+// its 32 two's-complement bit planes, with live masks per stage and for the
+// whole launch (the OR of the weights).  A target's containment over 32
+// rows is then the AND h of its item columns, as in K1, and its count is
+//   sum over live planes (c, b) of popc(h & plane_cb) << b   (mod 2^32),
+// the wrapping int32 sum for any int32 weights (plane 31 is the sign).
 //
-// Bound: as K1, the integer pipe.  The containment test is N*K*W LOP3s on
-// the 64 INT32 lanes per SM; the tensor-core work, 2*N*K*4C int8 operations,
-// is about 15x smaller at the card's 1,979 TOP/s (roofline/kernel_model.py).
-// So this route cannot beat K1's bound; it moves the C weight adds of each
-// contained pair off the integer pipe and adds one packing step and a
-// shared-memory byte store (a 32-bit store per 4 rows) per pair.
+// The product.  mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc
+// adds popc(a & b) over 256 rows for 16 targets (A, one AND word per
+// target and row-word) x 8 planes (B, the staged plane columns): the AND
+// words go to the tensor cores as they are, with no byte expansion.  A sum
+// over k does not change when the same permutation of k is applied to A and
+// B, so thread (g, t) of the fragment layout (lane = 4g + t; A rows g and
+// g + 8, B column g, k-words t and 4 + t of each k256 step) takes row-words
+// 4t .. 4t + 3 of a 16-row-word group over two k256 steps, read as one
+// 16-byte load per column, as K1 reads them.  A warp owns 32 targets (two
+// m16 tiles); its column loads and ANDs are K1's, per 4 row-words and
+// target, and the B load of a plane is shared by the warp's 32 targets.
 //
-// Work split: gridDim.x tiles the targets (blockDim.x of them, a multiple of
-// 32), gridDim.y splits N so that about one wave of CTAs is resident, each
-// CTA folds into per-target counts in shared memory and ends with one
-// atomicAdd per (k, c).  Classes are launched in groups of kClassGroup so
-// that shared memory stays bounded for any C.  Ragged K and N are masked
-// here: missing rows stage as zero weights, missing targets write nothing.
+// Live planes.  Only live planes feed the tensor cores.  At CTA start one
+// warp builds the list of live (class, bit) pairs from the whole-launch
+// masks, bit-major (plane 0 of every class, then plane 1, ...), taken in
+// groups of up to 16 (n8 tiles of 8 planes; 1 or 2 tiles a sweep).  Bit-major
+// order packs the classes together and puts the rarely live high planes in
+// the last tiles; per stage, a tile none of whose planes is live there
+// (the stage's live masks) is skipped.  After a group's sweep each thread
+// folds its accumulators, count[k, c] += acc[k, (c, b)] << b in wrapping
+// uint32, sums the four threads of a fragment row with two shuffles, and
+// adds it with one atomicAdd per (k, c).
 //
-// Left for later: wgmma with TMA-fed, pipelined stages, and packing the
-// containment bits of several rows per instruction.
+// Why no overflow.  A plane's sum over a CTA's rows is at most those rows,
+// below 2^24 under the route's N < 2^24 contract (the JAX package's f32
+// exactness bound, kept by the wrapper), so the s32 accumulators never
+// overflow; the fold is exact modulo 2^32.
+//
+// What bounds it.  The function needs, per target and 32 rows, the
+// ceil((s - 1) / 2) LOP3s of the AND (on the INT32 lanes) and a b1 product
+// of 2 * 32 bit operations per plane live in those rows (on the tensor
+// cores; roofline/kernel_model.py counts both at the card's rates: on the
+// H100 a b1 m16n8k256 issues at the rate of a u8 m16n8k32, 8x the int8
+// operations, as the rate loop of b1_probe.cu measures).  The
+// kernel's own cost is spread: taking out in turn the stage copies (every
+// CTA copies all the columns of its stages from L2), the column loads and
+// ANDs, the products or the per-stage barrier each saved a share at the
+// main path's level 3, none most of it (PERF.md).  Measured slower and not
+// kept: the stage copied by the bulk copy engine, one TMA copy per column
+// (76 small copies a stage at the main path), the columns read through L1
+// with no staging, the AND of a shared prefix loaded once for four
+// consecutive targets, a third stage buffer.
+//
+// Work split and knobs: as K1's.  block_k targets per CTA (any value in
+// [1, 1024]; ceil(block_k / 32) warps, ragged K masked), stages of
+// ceil(block_n / 32) row-words rounded up to a multiple of 32 (bitslice.cuh),
+// double-buffered with cp.async, split into at least 4 nearly full waves of
+// CTAs.  CTAs whose largest target has at most 2 or 3 items run K1's
+// unrolled 2- and 3-column loops; any larger target sends its CTA to the
+// general loop.  More than 16 live planes (C > 1 with wide weights) go in
+// groups, one sweep of the stages each.  W too wide for a stage in shared
+// memory (above about 50) reads the columns from device memory.
+//
+// Left for later: wgmma with .b1 operands from shared memory, fed by TMA
+// (the route after this one), and per-stage compaction of the live planes.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "bitslice.cuh"
+#include "mma_b1.cuh"
 
 namespace {
 
-constexpr int kRows = 128;               // rows staged per step: 4 k32 steps
-constexpr int kRowWords = kRows / 4;     // packed containment words per target
-// Word strides of the A and B tiles.  A: kAStride = 5 (mod 32) keeps the
-// containment stores (thread i writes word i * kAStride + q) conflict-free
-// and the fragment loads at most 2-way; B: kBStride = 4 (mod 32) makes the
-// fragment loads (word g * kBStride + t) conflict-free.
-constexpr int kAStride = kRowWords + 5;
-constexpr int kBStride = kRowWords + 4;
-constexpr int kClassGroup = 16;          // classes per kernel launch
-constexpr int kMaxThreads = 256;
-constexpr int kSmemBudget = 48 * 1024;
+constexpr int kTargetsPerWarp = 32;   // two m16 tiles
 
-__device__ __forceinline__ void mma_u8(int (&d)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+// A thread's four targets: rows g and g + 8 of the warp's two m16 tiles,
+// target i = 2 * tile + half at local index 32 * warp + 16 * tile + 8 * half
+// + g of the CTA's block_k.
+struct Targets {
+  long long k0;         // the CTA's first target
+  int local0;           // this thread's target 0, local to the CTA
+  int block_k;
+  long long k;
+  __device__ __forceinline__ int local(int i) const {
+    return local0 + 16 * (i >> 1) + 8 * (i & 1);
+  }
+  __device__ __forceinline__ bool valid(int i) const {
+    return local(i) < block_k && k0 + local(i) < k;
+  }
+  __device__ __forceinline__ long long kk(int i) const { return k0 + local(i); }
+};
 
-// W > 0: the target's W words in registers, rows staged in shared memory.
-// W == 0: any width `nw`; target and row words read through the L1 cache.
-template <int W>
-__global__ void count_mxu_kernel(const uint32_t* __restrict__ tx,
-                                 const uint32_t* __restrict__ tgt,
-                                 const int32_t* __restrict__ wts,
-                                 int32_t* __restrict__ out, long long n,
-                                 long long k, int nw, int nc, int c0, int cg,
-                                 long long rows_per_cta) {
-  extern __shared__ uint32_t smem[];
-  const int n_tiles = (cg + 1) / 2;                 // n8 tiles of B
-  uint32_t* s_a = smem;                             // [blockDim.x][kAStride]
-  uint32_t* s_b = s_a + blockDim.x * kAStride;      // [8 * n_tiles][kBStride]
-  uint32_t* s_out = s_b + 8 * n_tiles * kBStride;   // [blockDim.x][cg]
-  uint32_t* s_tx = s_out + blockDim.x * cg;         // [kRows][W], W > 0
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2;                          // fragment group
-  const int t = lane & 3;                           // thread in group
-  const int warp_row0 = tid & ~31;                  // the warp's 32 targets
-  const long long kk = (long long)blockIdx.x * blockDim.x + tid;
-  const bool active = kk < k;
-
-  uint32_t treg[W > 0 ? W : 1];
+// One sweep of the CTA's stages [st0, st1) over the plane group
+// s_plane[0, np) (plane code 32 * c + b: scratch column ncols + code), then
+// the fold into out.
+template <int S, int NT, bool STAGED>
+__device__ __forceinline__ void sweep(const Problem& p, const Sliced& s, int swp,
+                      const Targets& tg, bool busy, int st0, int st1, int np,
+                      const int* s_plane, int clo, int chi) {
+  using Off = typename Cols<STAGED>::Off;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // words between two columns: in the stage buffer, or in the scratch
+  const Off stride = (Off)(STAGED ? (long long)swp : s.nwp);
+  Off off[4][S > 0 ? S : 1];
 #pragma unroll
-  for (int i = 0; i < W; ++i) treg[i] = active ? tgt[kk * W + i] : 0u;
-  for (int c = 0; c < cg; ++c) s_out[tid * cg + c] = 0u;
-  // B columns past 4 * cg (cg odd) are zero for the whole kernel
-  for (int i = tid; i < (8 * n_tiles - 4 * cg) * kBStride; i += blockDim.x)
-    s_b[4 * cg * kBStride + i] = 0u;
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (S > 0)
+      decode_target<S>(p.tgt + tg.kk(i) * p.nw, tg.valid(i), p.nw, s.ncols,
+                       stride, off[i]);
+    else
+      off[i][0] = 0;
+  }
+  // this thread's B column of each n8 tile: plane slot 8 * nt + g
+  Off boff[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int slot = min(8 * nt + g, np - 1);
+    boff[nt] = (Off)(STAGED ? s.ncols + slot : s.ncols + s_plane[slot]) * stride;
+  }
+  // this lane's plane for the per-stage tile mask
+  const int mycode = lane < np ? s_plane[lane] : -1;
+  int acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
 
-  const long long r0 = (long long)blockIdx.y * rows_per_cta;
-  const long long r1 = min(n, r0 + rows_per_cta);
-  for (long long base = r0; base < r1; base += kRows) {
-    const int rows = (int)min((long long)kRows, r1 - base);
-    __syncthreads();  // every warp has consumed the previous step's B and rows
-    // weights as byte planes: word q of column c*4+p holds byte p of the
-    // weights of rows 4q..4q+3 (row 4q in the lowest byte)
-    for (int i = tid; i < cg * kRowWords; i += blockDim.x) {
-      const int c = i / kRowWords;
-      const int q = i - c * kRowWords;
-      uint32_t w4[4];
+  const int buf_words = (s.ncols + kPlaneGroup) * swp;
+  const int ncols = s.ncols;
+  auto src = [=](int col) -> long long {
+    return col < ncols ? col : ncols + s_plane[col - ncols];
+  };
+  if constexpr (STAGED) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = q * 4 + j;
-        w4[j] = r < rows ? (uint32_t)wts[(base + r) * nc + c0 + c] : 0u;
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t word = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) word |= ((w4[j] >> (8 * p)) & 0xFFu) << (8 * j);
-        s_b[(c * 4 + p) * kBStride + q] = word;
-      }
+    for (int i = 0; i < kBuffers - 1; ++i) {
+      if (st0 + i < st1)
+        issue_stage(s, g_stage + i * buf_words, swp, st0 + i, ncols + np, src);
+      cp_async_commit();
     }
-    if constexpr (W > 0) {
-      const uint32_t* gtx = tx + base * W;
-      for (int i = tid; i < kRows * W; i += blockDim.x)
-        s_tx[i] = i < rows * W ? gtx[i] : 0u;
+  }
+  // this lane's plane's live mask, loaded one stage ahead
+  const uint32_t* lrow = s.live + (long long)(mycode >> 5) * s.nst;
+  uint32_t lv_next = busy && mycode >= 0 && st0 < st1 ? __ldg(lrow + st0) : 0u;
+  Cols<STAGED> cols;
+  for (int st = st0; st < st1; ++st) {
+    Off base;   // this stage's row-word 0 of column 0
+    if constexpr (STAGED) {
+      cp_async_wait<kBuffers - 2>();  // this thread's copies of stage st
+      __syncthreads();  // stage st visible; stage st - 1's buffer is free
+      const int next = st + kBuffers - 1;
+      if (next < st1)
+        issue_stage(s, g_stage + ((next - st0) % kBuffers) * buf_words, swp,
+                    next, ncols + np, src);
+      cp_async_commit();
+      base = ((st - st0) % kBuffers) * buf_words;
+    } else {
+      cols.base = s.cols;
+      base = (long long)st * s.sw;
     }
-    __syncthreads();
-
-    // containment of this thread's target against the staged rows -> A
-    uint32_t* arow = s_a + tid * kAStride;
-    for (int q = 0; q < kRowWords; ++q) {
-      uint32_t word = 0;
-      if (active) {
+    if (!busy) continue;
+    // the group's planes live in this stage, one bit per slot
+    const uint32_t lv = lv_next;
+    if (mycode >= 0 && st + 1 < st1) lv_next = __ldg(lrow + st + 1);
+    const uint32_t smask =
+        __ballot_sync(0xffffffffu, mycode >= 0 && ((lv >> (mycode & 31)) & 1u));
+    if (smask == 0) continue;
+    for (int q = 0; q < s.sw; q += 16) {
+      const Off at = base + q + 4 * t;
+      // B: this thread's plane column of each n8 tile; dead and pad planes
+      // are zero (a dead plane's words are zero too)
+      uint4 b[NT];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = q * 4 + j;
-          bool hit;
-          if constexpr (W > 0) {
-            uint32_t miss = 0;
-#pragma unroll
-            for (int i = 0; i < W; ++i) miss |= treg[i] & ~s_tx[r * W + i];
-            hit = miss == 0;
-          } else {
-            hit = r < rows;
-            const uint32_t* row = tx + (base + r) * nw;
-            for (int i = 0; i < nw && hit; ++i) {
-              const uint32_t tw = __ldg(tgt + kk * nw + i);
-              hit = (__ldg(row + i) & tw) == tw;
-            }
-          }
-          word |= (uint32_t)hit << (8 * j);
-        }
-      }
-      arow[q] = word;
-    }
-    __syncwarp();  // the warp's A rows are its own: no block barrier needed
-
-    // the weighted reduction on the tensor cores, one n8 tile at a time
-    const int p = 2 * (t & 1);        // planes p, p+1 in this thread's columns
-    for (int nt = 0; nt < n_tiles; ++nt) {
-      int d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-      const uint32_t* bcol = s_b + (nt * 8 + g) * kBStride;
-#pragma unroll
-      for (int ks = 0; ks < kRows / 32; ++ks) {
-        const uint32_t b0 = bcol[ks * 8 + t];
-        const uint32_t b1 = bcol[ks * 8 + 4 + t];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const uint32_t* a_lo = s_a + (warp_row0 + mt * 16 + g) * kAStride + ks * 8;
-          const uint32_t* a_hi = a_lo + 8 * kAStride;
-          mma_u8(d[mt], a_lo[t], a_hi[t], a_lo[4 + t], a_hi[4 + t], b0, b1);
-        }
-      }
-      // fold: columns 2t, 2t+1 of tile nt are planes p, p+1 of class
-      // nt*2 + t/2; the neighbour thread t^1 holds the other two planes
-      const int c = nt * 2 + (t >> 1);
+      for (int nt = 0; nt < NT; ++nt)
+        b[nt] = (smask >> (8 * nt + g)) & 1u ? cols.at(at + boff[nt])
+                                             : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        uint32_t lo = ((uint32_t)d[mt][0] << (8 * p)) +
-                      ((uint32_t)d[mt][1] << (8 * p + 8));
-        uint32_t hi = ((uint32_t)d[mt][2] << (8 * p)) +
-                      ((uint32_t)d[mt][3] << (8 * p + 8));
-        lo += __shfl_xor_sync(0xffffffffu, lo, 1);
-        hi += __shfl_xor_sync(0xffffffffu, hi, 1);
-        if ((t & 1) == 0 && c < cg) {
-          s_out[(warp_row0 + mt * 16 + g) * cg + c] += lo;
-          s_out[(warp_row0 + mt * 16 + g + 8) * cg + c] += hi;
+        // A: the AND words of rows g and g + 8 (the general loop: an
+        // invalid target is all ones)
+        const uint4 lo = contained<S, STAGED>(
+            cols, at, off[2 * mt], stride, p.tgt + tg.kk(2 * mt) * p.nw,
+            tg.valid(2 * mt) ? p.nw : 0);
+        const uint4 hi = contained<S, STAGED>(
+            cols, at, off[2 * mt + 1], stride, p.tgt + tg.kk(2 * mt + 1) * p.nw,
+            tg.valid(2 * mt + 1) ? p.nw : 0);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (((smask >> (8 * nt)) & 0xffu) == 0) continue;
+          mma_b1(acc[mt][nt], lo.x, hi.x, lo.y, hi.y, b[nt].x, b[nt].y);
+          mma_b1(acc[mt][nt], lo.z, hi.z, lo.w, hi.w, b[nt].z, b[nt].w);
         }
       }
     }
   }
-  __syncwarp();
-  if (active) {
-    unsigned int* o = reinterpret_cast<unsigned int*>(out) + kk * nc + c0;
-    for (int c = 0; c < cg; ++c) {
-      const uint32_t v = s_out[tid * cg + c];
-      if (v != 0u) atomicAdd(o + c, v);
+  if constexpr (STAGED) {
+    cp_async_wait<0>();
+    __syncthreads();  // the buffers are free for the next sweep
+  }
+  if (!busy) return;
+  // the fold: D element (row, column 2t + j) is acc[mt][nt][2 * half + j]
+  int code[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int slot = 8 * nt + 2 * t + j;
+      code[nt][j] = slot < np ? s_plane[slot] : -1;
+    }
+  for (int c = clo; c <= chi; ++c) {
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (code[nt][j] < 0 || (code[nt][j] >> 5) != c) continue;
+        const int b = code[nt][j] & 31;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            v[2 * mt + half] += (uint32_t)acc[mt][nt][2 * half + j] << b;
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], 1);
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], 2);
+      if (t == 0 && tg.valid(i) && v[i] != 0u)
+        atomicAdd(reinterpret_cast<unsigned int*>(p.out) + tg.kk(i) * p.nc + c,
+                  v[i]);
     }
   }
 }
 
-int g_sm_count = 0;
-
-int sm_count() {
-  if (g_sm_count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
-    if (g_sm_count <= 0) g_sm_count = 132;
-  }
-  return g_sm_count;
+template <int S, bool STAGED>
+__device__ __forceinline__ void sweep_nt(const Problem& p, const Sliced& s, int swp,
+                         const Targets& tg, bool busy, int st0, int st1,
+                         int np, const int* s_plane, int clo, int chi) {
+  if (np <= 8)
+    sweep<S, 1, STAGED>(p, s, swp, tg, busy, st0, st1, np, s_plane, clo, chi);
+  else
+    sweep<S, 2, STAGED>(p, s, swp, tg, busy, st0, st1, np, s_plane, clo, chi);
 }
 
-size_t smem_bytes(int threads, int cg, int w_staged) {
-  const int n_tiles = (cg + 1) / 2;
-  return 4 * ((size_t)threads * kAStride + (size_t)8 * n_tiles * kBStride +
-              (size_t)threads * cg + (size_t)kRows * w_staged);
+// Warp 0 writes the group-th group of up to kPlaneGroup live planes,
+// bit-major: lane b counts the live planes of bit b over the classes, a scan
+// over the lanes gives each bit's first index, and each lane writes its
+// planes whose index falls in the group.
+__device__ __forceinline__ void next_group(const uint32_t* whole, int nc,
+                                           int group, int* s_plane, int* s_np,
+                                           int* s_clo, int* s_chi) {
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+  for (int c = 0; c < nc; ++c) cnt += (__ldg(whole + c) >> lane) & 1u;
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  const int lo = group * kPlaneGroup;
+  int idx = incl - cnt, clo = nc, chi = -1;
+  for (int c = 0; c < nc && idx < lo + kPlaneGroup; ++c) {
+    if (!((__ldg(whole + c) >> lane) & 1u)) continue;
+    if (idx >= lo) {
+      s_plane[idx - lo] = 32 * c + lane;
+      clo = min(clo, c);
+      chi = max(chi, c);
+    }
+    ++idx;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    clo = min(clo, __shfl_xor_sync(0xffffffffu, clo, d));
+    chi = max(chi, __shfl_xor_sync(0xffffffffu, chi, d));
+  }
+  if (lane == 0) {
+    *s_np = max(0, min(kPlaneGroup, total - lo));
+    *s_clo = clo;
+    *s_chi = chi;
+  }
 }
 
-template <int W>
-cudaError_t launch_group(const uint32_t* tx, const uint32_t* tgt,
-                         const int32_t* wts, int32_t* out, long long n,
-                         long long k, int nw, int nc, int c0, int cg,
-                         int threads, cudaStream_t stream) {
-  size_t smem = smem_bytes(threads, cg, W);
-  while (smem > (size_t)kSmemBudget && threads > 32) {
-    threads /= 2;
-    smem = smem_bytes(threads, cg, W);
+// MAXT: the largest CTA the instantiation runs: 256 (three CTAs of 256 an
+// SM, which caps it at 85 registers a thread: more warps hide the loads'
+// latency), 512, or 1024 when it must (64 registers).
+template <bool STAGED, int MAXT>
+__global__ void __launch_bounds__(MAXT, MAXT == 256 ? 3 : 1)
+count_mxu_kernel(Problem p, Sliced s, int block_k, int stages_per_cta,
+                 int swp) {
+  __shared__ int s_max, s_np, s_clo, s_chi;
+  __shared__ int s_plane[kPlaneGroup];
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int warp = threadIdx.x >> 5;
+  Targets tg;
+  tg.k0 = (long long)blockIdx.x * block_k;
+  tg.local0 = kTargetsPerWarp * warp + g;
+  tg.block_k = block_k;
+  tg.k = p.k;
+  int size = 0;
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!tg.valid(i)) continue;
+    size = max(size, target_size(p.tgt + tg.kk(i) * p.nw, p.nw));
+    any = true;
   }
-  const long long grid_x = (k + threads - 1) / threads;
-  // split N so that about one wave of CTAs is resident on the SMs
-  long long per_sm = 2048 / threads;
-  const long long by_smem = (long long)(227 * 1024) / (long long)smem;
-  if (by_smem < per_sm) per_sm = by_smem;
-  if (per_sm < 1) per_sm = 1;
-  const long long wave = (long long)sm_count() * per_sm;
-  long long splits = (wave + grid_x - 1) / grid_x;
-  const long long max_splits = (n + kRows - 1) / kRows;
-  if (splits > max_splits) splits = max_splits;
-  if (splits > 65535) splits = 65535;
-  if (splits < 1) splits = 1;
-  long long rpc = (n + splits - 1) / splits;
-  rpc = (rpc + kRows - 1) / kRows * kRows;
-  const dim3 grid((unsigned)grid_x, (unsigned)((n + rpc - 1) / rpc));
-  count_mxu_kernel<W><<<grid, threads, smem, stream>>>(
-      tx, tgt, wts, out, n, k, nw, nc, c0, cg, rpc);
+  const bool busy = __any_sync(0xffffffffu, any);
+  if (threadIdx.x == 0) s_max = 0;
+  __syncthreads();
+  if (size > 0) atomicMax(&s_max, size);
+  const int st0 = blockIdx.y * stages_per_cta;
+  const int st1 = min(s.nst, st0 + stages_per_cta);
+  for (int group = 0;; ++group) {
+    if (warp == 0) next_group(s.whole, p.nc, group, s_plane, &s_np, &s_clo,
+                              &s_chi);
+    __syncthreads();
+    const int np = s_np;
+    if (np == 0) break;
+    const int smax = s_max, clo = s_clo, chi = s_chi;
+    if (smax <= 2)
+      sweep_nt<2, STAGED>(p, s, swp, tg, busy, st0, st1, np, s_plane, clo, chi);
+    else if (smax == 3)
+      sweep_nt<3, STAGED>(p, s, swp, tg, busy, st0, st1, np, s_plane, clo, chi);
+    else
+      sweep_nt<0, STAGED>(p, s, swp, tg, busy, st0, st1, np, s_plane, clo, chi);
+    __syncthreads();   // s_plane is rewritten for the next group
+  }
+}
+
+template <bool STAGED>
+cudaError_t launch_count(const Problem& p, const Sliced& s, const Geometry& g,
+                         int block_k, cudaStream_t stream) {
+  const int threads = (int)cdiv(block_k, kTargetsPerWarp) * 32;
+  auto kernel = threads <= 256   ? count_mxu_kernel<STAGED, 256>
+                : threads <= 512 ? count_mxu_kernel<STAGED, 512>
+                                 : count_mxu_kernel<STAGED, 1024>;
+  const long long grid_x = cdiv(p.k, block_k);
+  int per_cta = 0;
+  cudaError_t e = prepare_count(kernel, threads, g.smem, grid_x, g.nst,
+                                &per_cta);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)grid_x, (unsigned)cdiv(g.nst, per_cta));
+  kernel<<<grid, threads, g.smem, stream>>>(p, s, block_k, per_cta, g.swp);
   return cudaGetLastError();
 }
 
@@ -267,42 +363,55 @@ cudaError_t launch_group(const uint32_t* tx, const uint32_t* tgt,
 
 extern "C" {
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// The argument list is itemset_count_launch's: threads is the requested
-// number of targets per CTA (rounded up to a multiple of 32 and capped at
-// kMaxThreads, then halved while shared memory exceeds 48 KB); tile_rows is
-// accepted and ignored -- every CTA stages kRows rows per step.  The counts
-// do not depend on either.
+// The layout of n rows for block_n on route (0: K1, 1: K2): geometry_report
+// of bitslice.cuh.
+int itemset_count_geometry(long long n, int nw, int nc, int block_n, int route,
+                           long long* out) {
+  return geometry_report(n, nw, nc, block_n, route, out);
+}
+
+// K2's layout pass alone: writes its columns, live masks and whole-launch
+// masks into `scratch` (out[3] of itemset_count_geometry with route 1) on
+// `stream`; returns the cudaError_t.
+int itemset_count_mxu_layout(const void* tx, const void* wts, void* scratch,
+                             long long scratch_len, long long n, int nw,
+                             int nc, int block_n, void* stream_ptr) {
+  return layout_only<kRouteMxu>(tx, wts, scratch, scratch_len, n, nw, nc,
+                                block_n, stream_ptr);
+}
+
+// One count: the layout pass, then the count kernel, on `stream`; the
+// argument list is itemset_count_launch's.  With accumulate = 0 `out` is
+// zeroed first; with 1 the counts are added into it.  Returns the
+// cudaError_t of the first failing step (0 = success).
 int itemset_count_mxu_launch(const void* tx, const void* tgt, const void* wts,
-                             void* out, long long n, long long k, int nw,
-                             int nc, int threads, int tile_rows,
-                             int accumulate, void* stream_ptr) {
+                             void* out, void* scratch, long long scratch_len,
+                             long long n, long long k, int nw, int nc,
+                             int block_k, int block_n, int accumulate,
+                             void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n < 0 || k < 0 || nw < 1 || nc < 1 || threads < 1 || threads > 1024 ||
-      tile_rows < 1)
+  if (n < 0 || k < 0 || nw < 1 || nc < 1 || block_k < 1 || block_k > 1024 ||
+      block_n < 1)
     return (int)cudaErrorInvalidValue;
-  int32_t* o = static_cast<int32_t*>(out);
   if (!accumulate) {
-    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)k * nc * 4, stream);
+    cudaError_t e = cudaMemsetAsync(out, 0, (size_t)k * nc * 4, stream);
     if (e != cudaSuccess) return (int)e;
   }
   if (n == 0 || k == 0) return (int)cudaSuccess;
-  const uint32_t* x = static_cast<const uint32_t*>(tx);
-  const uint32_t* g = static_cast<const uint32_t*>(tgt);
-  const int32_t* w = static_cast<const int32_t*>(wts);
-  int t = (threads + 31) / 32 * 32;
-  if (t > kMaxThreads) t = kMaxThreads;
-  for (int c0 = 0; c0 < nc; c0 += kClassGroup) {
-    const int cg = nc - c0 < kClassGroup ? nc - c0 : kClassGroup;
-    cudaError_t e;
-    if (nw == 1) e = launch_group<1>(x, g, w, o, n, k, nw, nc, c0, cg, t, stream);
-    else if (nw == 2) e = launch_group<2>(x, g, w, o, n, k, nw, nc, c0, cg, t, stream);
-    else if (nw == 3) e = launch_group<3>(x, g, w, o, n, k, nw, nc, c0, cg, t, stream);
-    else if (nw == 4) e = launch_group<4>(x, g, w, o, n, k, nw, nc, c0, cg, t, stream);
-    else e = launch_group<0>(x, g, w, o, n, k, nw, nc, c0, cg, t, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  const Geometry g = geometry(n, nw, nc, block_n, kRouteMxu);
+  if (scratch_len < scratch_words(nw, nc, g, kRouteMxu))
+    return (int)cudaErrorInvalidValue;
+  Problem p = problem(tx, wts, n, nw, nc);
+  p.tgt = static_cast<const uint32_t*>(tgt);
+  p.out = static_cast<int32_t*>(out);
+  p.k = k;
+  const Sliced s =
+      sliced_view(static_cast<uint32_t*>(scratch), nw, nc, g, kRouteMxu);
+  cudaError_t e = launch_layout<kRouteMxu>(p, s, stream);
+  if (e != cudaSuccess) return (int)e;
+  e = g.staged ? launch_count<true>(p, s, g, block_k, stream)
+               : launch_count<false>(p, s, g, block_k, stream);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -24,15 +24,17 @@ The weighted reduction follows the kernel's ``accum`` route:
 The per-block sums are added in int64 and wrapped to int32 at the end, as an
 int32 product would wrap.
 
-The bit-sliced form that K1 (``csrc/itemset_count.cu``) counts over has its
-plain version here too, for the tests and ``chip_smoke.py``:
-``to_item_columns`` and ``to_weight_planes`` (with ``heavy_rows``) give the
-words of the kernel's layout over ``ceil(N / 32)`` row-words (its layout
-pass, which pads to whole stages with zero rows, is compared with them bit
-for bit), and ``itemset_counts_sliced`` counts over them,
+The bit-sliced form that both kernels count over (``csrc/bitslice.cuh``)
+has its plain version here too, for the tests and ``chip_smoke.py``:
+``to_item_columns`` and ``to_weight_planes`` (with ``heavy_rows`` for K1,
+``whole_masks`` for K2) give the words of the kernels' layouts over
+``ceil(N / 32)`` row-words (their layout passes, which pad to whole stages
+with zero rows, are compared with them bit for bit), ``live_planes`` gives
+the order in which K2 feeds the live planes to the tensor cores, and
+``itemset_counts_sliced`` counts over them,
 ``sum_b popc(h & plane_b) << b`` over the live planes of each stage, where
 ``h`` is the AND of the target's item columns.  The stage is a parameter:
-the kernel's own stage geometry lives in its source alone.
+the kernels' own stage geometry lives in their sources alone.
 """
 from __future__ import annotations
 
@@ -204,6 +206,44 @@ def to_weight_planes(weights: torch.Tensor, stage_words: int):
     shifts = torch.arange(32, device=planes.device)[None, :, None]
     live = (nonzero.to(torch.int64) << shifts).sum(1)
     return _u32(planes), _u32(live)
+
+
+def whole_masks(weights: torch.Tensor) -> torch.Tensor:
+    """(N, C) int32 weights -> (C,) uint32 whole-launch masks: bit b of
+    class c set iff plane b of class c has a set bit anywhere (the OR of
+    the class's weights)."""
+    w = _bits64(weights.to(torch.int32))
+    out = torch.zeros(w.shape[1], dtype=torch.int64, device=w.device)
+    for b in range(32):
+        out |= ((w >> b) & 1).amax(0) << b if w.shape[0] else 0
+    return _u32(out)
+
+
+def live_plane_words(weights: torch.Tensor) -> int:
+    """(N, C) int32 weights -> the live plane words: over every row-word of
+    32 rows, the (class, bit) planes with a set bit there.  The b1 product
+    of ``roofline/kernel_model.py`` counts 32 rows a target for each."""
+    planes, _ = to_weight_planes(weights, 1)
+    return int((planes != 0).sum())
+
+
+def live_planes(whole: torch.Tensor) -> torch.Tensor:
+    """(C,) uint32 whole-launch masks -> (P,) int64 codes ``32 * c + b`` of
+    the live (class, bit) planes, bit-major (plane 0 of every class, then
+    plane 1, ...): the order in which K2 packs them into n8 tiles of 8."""
+    m = _bits64(whole)
+    c = m.shape[0]
+    bit = torch.arange(32, device=m.device)
+    on = ((m[None, :] >> bit[:, None]) & 1).bool()              # (32, C)
+    b_idx, c_idx = torch.nonzero(on, as_tuple=True)             # bit-major
+    return 32 * c_idx + b_idx
+
+
+def b1_tile_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One b1 AND + POPC product: ``a`` (16, 8) and ``b`` (8, 8) uint32
+    words -> (16, 8) int32 ``d[r, n] = sum_j popc(a[r, j] & b[n, j])``."""
+    x = _bits64(a)[:, None, :] & _bits64(b)[None, :, :]          # (16, 8, 8)
+    return _popcount32(x).sum(-1).to(torch.int32)
 
 
 def heavy_rows(planes: torch.Tensor) -> torch.Tensor:

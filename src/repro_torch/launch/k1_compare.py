@@ -1,29 +1,35 @@
-"""Time K1 sources side by side on one CUDA card, at the Minority-Report main
-path's three launches.
+"""Time K1 or K2 sources side by side on one CUDA card, at the
+Minority-Report main path's three launches.
 
   PYTHONPATH=src python -m repro_torch.launch.k1_compare \\
-      [--source NAME=FILE.cu ...] [--runs 7] [--out FILE.json]
+      [--accum vpu_int32|mxu_f32] [--source NAME=FILE.cu ...] [--runs 7] \\
+      [--block-k 128] [--block-n 512] [--out FILE.json]
 
-Builds the shipped ``csrc/itemset_count.cu`` (named "new") and every
-``--source`` (one ``nvcc`` each, in parallel).  A source that exports
-``itemset_count_geometry`` has the shipped C interface: bit-sliced, its
-scratch sized by its own geometry.  Any other source has the row-by-row
-interface ``itemset_count_launch(tx, tgt, wts, out, n, k, w, c, threads,
-tile_rows, accumulate, stream)``, as K1 had before it was bit-sliced (an
-earlier revision of ``csrc/itemset_count.cu`` from the history).
+Builds the shipped kernel of ``--accum`` (named "new": ``csrc/
+itemset_count.cu`` for K1, ``vpu_int32``, the default; ``csrc/
+itemset_count_mxu.cu`` for K2, ``mxu_f32``) and every ``--source`` (one
+``nvcc`` each, in parallel).  A K1 source that exports
+``itemset_count_geometry``, or a K2 source that exports
+``itemset_count_mxu_layout``, has the shipped C interface: bit-sliced, with
+a scratch large enough for any stage geometry of the route.  Any other
+source has the row-by-row interface ``itemset_count_launch`` (K2:
+``itemset_count_mxu_launch``) ``(tx, tgt, wts, out, n, k, w, c, threads,
+tile_rows, accumulate, stream)``, as K1 and K2 had before they were
+bit-sliced (earlier revisions of the sources from the history).
 
 On the DB that ``chip_smoke.py`` mines (``bernoulli_db(1_000_000, 60, 0.125,
 0.01, seed=0)`` through ``mra_encode``: N = 969,130, W = C = 2) it checks
 every source against the plain version at level 2 (K = 1,770), level 3
 (K = 34,220) and the fused pass (K = 1,830), then times them in turns (every
 source, then every source in reverse order), called straight through ctypes
-with the default knobs: ``ms`` is the time per call of ``--runs`` calls back
-to back between two CUDA events, the mean of the two turns.  Beside them:
-the shipped kernel through its wrapper (``ops.itemset_counts``), its layout
-pass alone, and the 8-chunk streamed sweep (131,072-row chunks resident on
-the card, accumulating) of every source and of the wrapper, with the
-wrapper's host enqueue time per chunk.  Prints one JSON line per launch and
-writes the record to ``--out``.
+with ``--block-k`` and ``--block-n`` (the wrapper's defaults unless given):
+``ms`` is the time per call of ``--runs`` calls back to back between two
+CUDA events, the mean of the two turns.  Beside them: the shipped kernel
+through its wrapper (``ops.itemset_counts``), its layout pass alone, and
+the 8-chunk streamed sweep (131,072-row chunks resident on the card,
+accumulating) of every source and of the wrapper, with the wrapper's host
+enqueue time per chunk.  Prints one JSON line per launch and writes the
+record to ``--out``.
 """
 from __future__ import annotations
 
@@ -62,9 +68,14 @@ def _batch_ms(fn, runs: int, warmup: int = 2) -> float:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--accum", default="vpu_int32",
+                    choices=("vpu_int32", "mxu_f32"),
+                    help="the route: K1 (vpu_int32) or K2 (mxu_f32)")
     ap.add_argument("--source", action="append", default=[],
-                    metavar="NAME=FILE.cu", help="another K1 source")
+                    metavar="NAME=FILE.cu", help="another source of the route")
     ap.add_argument("--runs", type=int, default=7)
+    ap.add_argument("--block-k", type=int, default=None)
+    ap.add_argument("--block-n", type=int, default=None)
     ap.add_argument("--out", type=Path, default=Path("build/k1_compare.json"))
     args = ap.parse_args(argv)
 
@@ -84,40 +95,46 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     autotune.set_active_table(None)
     obs.configure(kernel_timing=False)    # the events below time the launches
     dev = torch.device("cuda")
-    bk, bn = ops.DEFAULT_BLOCK_K, ops.DEFAULT_BLOCK_N
+    accum = args.accum
+    bk = ops.DEFAULT_BLOCK_K if args.block_k is None else args.block_k
+    bn = ops.DEFAULT_BLOCK_N if args.block_n is None else args.block_n
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    sources = {"new": ops.SOURCE}
+    shipped, entry, layout_name, _ = ops._ROUTES[accum]
+    sources = {"new": shipped}
     for spec in args.source:
         name, path = spec.split("=", 1)
         sources[name] = Path(path).resolve()
-    _build.build_all(list(sources.values()) + [ops.SOURCE_MXU])
+    _build.build_all(list(sources.values()) + [ops.SOURCE, ops.SOURCE_MXU])
     ops.build()
     libs = {name: ctypes.CDLL(str(_build.library_path(src)))
             for name, src in sources.items()}
     _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fns, scratch = {}, {}
     for name, lib in libs.items():
-        fn = lib.itemset_count_launch
-        sliced = hasattr(lib, "itemset_count_geometry")
-        fn.argtypes = (ops._ROUTES["vpu_int32"][2] if sliced
+        fn = getattr(lib, entry)
+        sliced = hasattr(lib, "itemset_count_geometry" if accum == "vpu_int32"
+                         else layout_name)
+        fn.argtypes = (ops._LAUNCH_ARGS if sliced
                        else [_P] * 4 + [_LL] * 2 + [_I] * 5 + [_P])
         fn.restype = _I
-        fns[name] = (fn, lib.itemset_count_geometry if sliced else None)
+        fns[name] = (fn, sliced)
 
     def run(name, tx, tgt, w, out, accumulate=0):
-        fn, geometry = fns[name]
+        fn, sliced = fns[name]
         n, nw = tx.shape
         k, c = tgt.shape[0], w.shape[1]
         ptrs = [tx.data_ptr(), tgt.data_ptr(), w.data_ptr(), out.data_ptr()]
-        if geometry is not None:
+        if sliced:
             buf = scratch.get((name, n))
             if buf is None:
-                g = (_LL * 7)()
-                if geometry(n, nw, c, bn, g):
-                    raise RuntimeError(f"{name}: geometry failed")
-                buf = torch.empty(g[3], dtype=torch.int32, device=dev)
+                # twice the shipped layout's scratch and room for the live
+                # masks of stages of one row-word: a source with another
+                # stage geometry fits too
+                words = (2 * ops.sliced_geometry(n, nw, c, bn, accum).words
+                         + c * (-(-n // 32) + 1))
+                buf = torch.empty(words, dtype=torch.int32, device=dev)
                 scratch[(name, n)] = buf
             ptrs += [buf.data_ptr(), buf.numel()]
         err = fn(*ptrs, n, k, nw, c, bk, bn, accumulate,
@@ -131,8 +148,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                    streaming=False, device=dev)
     tx_d, w_d = db.bits, db.weights
     u, nw = tx_d.shape
-    layout = ops._c_function(ops.SOURCE, *ops._LAYOUT)
-    g = ops.sliced_geometry(u, nw, 2, bn)
+    layout = ops._layout_pass(accum)
+    g = ops.sliced_geometry(u, nw, 2, bn, accum)
     layout_buf = torch.empty(g.words, dtype=torch.int32, device=dev)
 
     def prep():
@@ -144,7 +161,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     chunks = [(s, min(s + CHUNK_ROWS, u)) for s in range(0, u, CHUNK_ROWS)]
     names = list(fns)
-    record = {"card": card, "torch": torch.__version__,
+    record = {"card": card, "torch": torch.__version__, "accum": accum,
               "cuda": torch.version.cuda, "n": u, "w": nw, "c": 2,
               "block_k": bk, "block_n": bn, "runs": args.runs,
               "sources": {k: str(v) for k, v in sources.items()},
@@ -157,19 +174,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         out = torch.empty((k, 2), dtype=torch.int32, device=dev)
         acc = torch.empty((k, 2), dtype=torch.int32, device=dev)
         want = ops.itemset_counts(tx_d, tgt, w_d, use_kernel=False)
+        knobs = dict(block_k=bk, block_n=bn, accum=accum)
 
         def sweep(name):
             acc.zero_()
             for s, e in chunks:
                 if name is None:
-                    ops.itemset_counts_into(acc, tx_d[s:e], tgt, w_d[s:e])
+                    ops.itemset_counts_into(acc, tx_d[s:e], tgt, w_d[s:e],
+                                            **knobs)
                 else:
                     run(name, tx_d[s:e], tgt, w_d[s:e], acc, accumulate=1)
 
         for name in names + [None]:
             sweep(name)
             if not (torch.equal(run(name, tx_d, tgt, w_d, out) if name
-                                else ops.itemset_counts(tx_d, tgt, w_d), want)
+                                else ops.itemset_counts(tx_d, tgt, w_d,
+                                                        **knobs), want)
                     and torch.equal(acc, want)):
                 raise AssertionError(f"{label}: {name or 'wrapper'} != plain")
         ms = {name: [] for name in names}
@@ -184,12 +204,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             torch.cuda.synchronize()
             t = time.perf_counter()
             for s, e in chunks:
-                ops.itemset_counts_into(acc, tx_d[s:e], tgt, w_d[s:e])
+                ops.itemset_counts_into(acc, tx_d[s:e], tgt, w_d[s:e],
+                                        **knobs)
             enqueue.append((time.perf_counter() - t) * 1e3 / len(chunks))
         torch.cuda.synchronize()
         row = {"geometry": label, "k": k,
                "wrapper_ms": _batch_ms(
-                   lambda: ops.itemset_counts(tx_d, tgt, w_d), args.runs),
+                   lambda: ops.itemset_counts(tx_d, tgt, w_d, **knobs),
+                   args.runs),
                "prep_ms": _batch_ms(prep, args.runs),
                "sweep_chunks": len(chunks),
                "sweep_wrapper_ms": _batch_ms(lambda: sweep(None), args.runs),

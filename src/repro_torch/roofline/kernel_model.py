@@ -33,13 +33,24 @@ charges N*K*(2W + C), three times the horizontal count at W = C = 2.
 Predicted launch time is the perfect-overlap roofline bound
 ``max(bytes/HBM_BW, ops/PEAK_INT32_OPS)`` with the H100 SXM constants below.
 
-``accum="mxu_f32"`` (K2, ``csrc/itemset_count_mxu.cu``) moves the weighted
-reduction to the tensor cores as an int8 product over the weights' 4 byte
-planes: the integer pipe keeps the containment test (no per-hit adds), and
-the tensor cores do ``2*N*K*4C`` int8 operations.  Its bound is the larger
-of the three times: at the main-path level 3 (N = 969,130, K = 34,220,
-W = C = 2, three items a target) about 0.06 ms of containment against
-0.27 ms of tensor work, so K2's bound is its tensor term.
+``accum="mxu_f32"`` (K2, ``csrc/itemset_count_mxu.cu``) reduces the same
+bit-sliced AND words on the tensor cores: with the weights split into their
+32 two's-complement bit planes, a target's count is
+``sum_b popc(h & plane_b) << b`` over the live planes, a b1 AND + POPC
+product of ``2 * 32 * K * plane_words`` bit operations (``b1_ops``), where
+``plane_words`` sums, over the row-words (32 rows each), the (class, bit)
+planes live in that word: a plane none of whose 32 rows has the bit set
+needs no product there.  A caller that knows the weights (``chip_smoke.py``
+counts the nonzero words of ``ref.to_weight_planes``) passes it; the
+telemetry path does not, and counts ``C`` planes in every word
+(``C * ceil(N/32)``), a floor that never flatters.  K2's bound is the
+larger of that product at ``PEAK_B1_TENSOR_OPS``, its ANDs (``and_ops``)
+at ``PEAK_INT32_OPS``, and its bytes; it adds no weights on the integer
+pipe.  The first K2 (a
+row-by-row test) reduced the 0/1 containment bytes against the weights' 4
+byte planes, ``2*N*K*4C`` int8 operations (``byte_plane_ops``,
+``byte_plane_seconds``): the work of one formulation, not the least work
+of the function, kept to compare with the times it was quoted beside.
 
 ``record_launch`` publishes measured device time against that prediction
 into the telemetry registry (``repro_torch.obs``), so a run reports a
@@ -58,6 +69,19 @@ Constants (NVIDIA H100 SXM, at the full 700 W power limit):
   * ``PEAK_INT8_TENSOR_OPS`` = 1.979e15 op/s, the published dense int8
     tensor-core rate of the H100 SXM (NVIDIA's data sheet, without
     sparsity).
+  * ``PEAK_B1_TENSOR_OPS`` = 8 x ``PEAK_INT8_TENSOR_OPS`` = 1.5832e16 bit
+    op/s: the card's tensor rate in bits.  No data sheet gives a b1 rate
+    for Hopper; the rate loop of ``csrc/b1_probe.cu`` (every warp of 132 x
+    4 CTAs of 8 warps issues chains of independent ``mma.sync``, timed with
+    CUDA events through ``b1_probe.mma_rate``), as ``chip_smoke.py`` phase
+    8 runs it, finds a b1 ``m16n8k256`` (256 bits of k) taking the time of a
+    u8 ``m16n8k32`` (32 bytes of k) on an NVIDIA H100 80GB HBM3 at a 700.00
+    W power limit (``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader``), which ties the b1 rate to 8x the int8 rate.
+    ``mma.sync`` itself reaches about two thirds of the int8 rate there
+    (the rest needs ``wgmma``), so the bound counts what the card can do,
+    not what one instruction reaches; the script prints the measured rate
+    beside it.
 """
 from __future__ import annotations
 
@@ -70,6 +94,9 @@ INT32_LANES_PER_SM = 64
 MAX_SM_CLOCK_HZ = 1.98e9
 PEAK_INT32_OPS = SM_COUNT * INT32_LANES_PER_SM * MAX_SM_CLOCK_HZ  # op/s
 PEAK_INT8_TENSOR_OPS = 1.979e15           # op/s, dense int8 tensor cores
+# bit op/s of b1 AND+POPC: a b1 m16n8k256 issues at the rate of a u8
+# m16n8k32 on the H100 (csrc/b1_probe.cu, see above)
+PEAK_B1_TENSOR_OPS = 8 * PEAK_INT8_TENSOR_OPS
 
 _WORD_BYTES = 4
 
@@ -98,9 +125,16 @@ def horizontal_flops(n: int, k: int, w: int, c: int, hits: int = 0) -> float:
     return float(n) * float(k) * float(w) + float(c) * float(hits)
 
 
-def tensor_ops(n: int, k: int, c: int) -> float:
-    """Int8 tensor-core operations of K2's reduction: a (K, N) x (N, 4C)
-    product, two operations per multiply-add."""
+def b1_ops(k: int, plane_words: int) -> float:
+    """Bit operations of K2's b1 product: ``plane_words`` live (class, bit)
+    plane words of 32 rows each, two operations (AND, POPC-add) per bit and
+    target."""
+    return 2.0 * 32.0 * float(k) * float(plane_words)
+
+
+def byte_plane_ops(n: int, k: int, c: int) -> float:
+    """Int8 operations of the first K2's formulation: a (K, N) x (N, 4C)
+    product of 0/1 containment bytes and the weights' byte planes."""
     return 2.0 * float(n) * float(k) * 4.0 * float(c)
 
 
@@ -111,11 +145,13 @@ def kernel_bytes(n: int, k: int, w: int, c: int) -> float:
 
 
 def _times(n: int, k: int, w: int, c: int, hits: int, accum: str,
-           target_sizes: Optional[Iterable[int]]):
+           target_sizes: Optional[Iterable[int]], plane_words: Optional[int]):
     """(integer-pipe, tensor-core, memory) seconds of one launch."""
     if accum == "mxu_f32":
+        if plane_words is None:
+            plane_words = c * -(-int(n) // 32)
         return (and_ops(n, k, target_sizes) / PEAK_INT32_OPS,
-                tensor_ops(n, k, c) / PEAK_INT8_TENSOR_OPS,
+                b1_ops(k, plane_words) / PEAK_B1_TENSOR_OPS,
                 kernel_bytes(n, k, w, c) / HBM_BW)
     return (kernel_flops(n, k, w, c, hits, target_sizes) / PEAK_INT32_OPS, 0.0,
             kernel_bytes(n, k, w, c) / HBM_BW)
@@ -123,11 +159,22 @@ def _times(n: int, k: int, w: int, c: int, hits: int, accum: str,
 
 def predicted_seconds(n: int, k: int, w: int, c: int, hits: int = 0,
                       accum: str = "vpu_int32",
-                      target_sizes: Optional[Iterable[int]] = None) -> float:
+                      target_sizes: Optional[Iterable[int]] = None,
+                      plane_words: Optional[int] = None) -> float:
     """Perfect-overlap roofline bound for one launch on the card.  ``hits``
-    counts only for ``vpu_int32``: K2 adds no weights on the integer
-    pipe."""
-    return max(_times(n, k, w, c, hits, accum, target_sizes))
+    counts only for ``vpu_int32`` and ``plane_words`` (the live plane
+    words, ``C`` planes in every word when None) only for ``mxu_f32``: K2
+    adds no weights on the integer pipe."""
+    return max(_times(n, k, w, c, hits, accum, target_sizes, plane_words))
+
+
+def byte_plane_seconds(n: int, k: int, w: int, c: int,
+                       target_sizes: Optional[Iterable[int]] = None) -> float:
+    """The first K2's bound: the byte-plane product at ``PEAK_INT8_TENSOR_OPS``
+    against the same ANDs and bytes."""
+    return max(and_ops(n, k, target_sizes) / PEAK_INT32_OPS,
+               byte_plane_ops(n, k, c) / PEAK_INT8_TENSOR_OPS,
+               kernel_bytes(n, k, w, c) / HBM_BW)
 
 
 def horizontal_seconds(n: int, k: int, w: int, c: int, hits: int = 0
@@ -199,26 +246,30 @@ def _reset_geometry_buckets() -> None:
 
 def bound_by(n: int, k: int, w: int, c: int, hits: int = 0,
              accum: str = "vpu_int32",
-             target_sizes: Optional[Iterable[int]] = None) -> str:
+             target_sizes: Optional[Iterable[int]] = None,
+             plane_words: Optional[int] = None) -> str:
     """Which side of the roofline bounds this geometry: ``"operations"`` or
     ``"bytes"``."""
-    int_s, tensor_s, mem_s = _times(n, k, w, c, hits, accum, target_sizes)
+    int_s, tensor_s, mem_s = _times(n, k, w, c, hits, accum, target_sizes,
+                                    plane_words)
     return "operations" if max(int_s, tensor_s) >= mem_s else "bytes"
 
 
-def record_launch(n: int, k: int, w: int, c: int, seconds: float) -> None:
+def record_launch(n: int, k: int, w: int, c: int, seconds: float,
+                  accum: str = "vpu_int32") -> None:
     """Publish one measured launch against the model: three counters per
     geometry BUCKET (launch count, measured seconds, predicted seconds) —
     the efficiency ratio is derived at snapshot time by
     ``repro_torch.obs.kernel_efficiency``.  The prediction uses the exact
-    geometry and counts the containment test alone, one AND per target and
-    row-word (the wrapper reads neither the hit count nor the targets'
-    sizes back); only the aggregation label is bucketized (bounded label
-    set)."""
+    geometry and the launch's route, and counts what the wrapper knows: one
+    AND per target and row-word (it reads neither the hit count nor the
+    targets' sizes back) and, for ``mxu_f32``, ``C`` live planes in every
+    row-word; only the
+    aggregation label is bucketized (bounded label set)."""
     from ..obs import REGISTRY
 
     geom = _bucket_label(n, k, w, c)
     REGISTRY.counter("kernel_launches_total", geometry=geom).inc()
     REGISTRY.counter("kernel_measured_s_total", geometry=geom).inc(seconds)
     REGISTRY.counter("kernel_predicted_s_total", geometry=geom).inc(
-        predicted_seconds(n, k, w, c))
+        predicted_seconds(n, k, w, c, accum=accum))

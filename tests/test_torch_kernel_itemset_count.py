@@ -306,18 +306,37 @@ def test_kernel_model_mxu_bound():
     n, k, w, c = 969130, 34220, 2, 2
     words = -(-n // 32)
     ints = words * k / km.PEAK_INT32_OPS     # one AND per target and word
-    tensor = 2 * n * k * 4 * c / km.PEAK_INT8_TENSOR_OPS
+    # the card's b1 rate: 8 bits for every int8 operation of its tensor rate
+    assert km.PEAK_B1_TENSOR_OPS == 8 * km.PEAK_INT8_TENSOR_OPS
+    # the b1 product: 2 bit operations per row (32 a word), target and live
+    # plane word; C planes in every word when the live planes are not known
+    assert km.b1_ops(k, c * words) == 2 * 32 * words * k * c
+    b1 = km.b1_ops(k, c * words) / km.PEAK_B1_TENSOR_OPS
     assert km.and_ops(n, k) == words * k
-    assert km.tensor_ops(n, k, c) == 2 * n * k * 4 * c
     assert km.predicted_seconds(n, k, w, c, accum="mxu_f32") == max(
-        ints, tensor, km.kernel_bytes(n, k, w, c) / km.HBM_BW)
-    # about 0.06 ms of bit-sliced containment against 0.27 ms of tensor
-    # work: the restated K2 bound is its tensor term
-    assert 0.06e-3 < ints < 0.07e-3 and 0.26e-3 < tensor < 0.28e-3
-    assert km.predicted_seconds(n, k, w, c, accum="mxu_f32") == tensor
+        ints, b1, km.kernel_bytes(n, k, w, c) / km.HBM_BW) == ints
+    # even 11 planes live in every word of the main path's level 3 cost
+    # about 0.046 ms of b1 product, below the 0.062 ms of bit-sliced
+    # containment: K2's bound there is its ANDs
+    p11 = km.b1_ops(k, 11 * words) / km.PEAK_B1_TENSOR_OPS
+    assert 0.06e-3 < ints < 0.065e-3 and 0.044e-3 < p11 < 0.048e-3
+    assert km.predicted_seconds(n, k, w, c, accum="mxu_f32",
+                                plane_words=11 * words) == ints
+    assert km.bound_by(n, k, w, c, accum="mxu_f32",
+                       plane_words=11 * words) == "operations"
     # three items a target: floor(3/2) = 1 AND per word, the same count
     assert km.predicted_seconds(n, k, w, c, accum="mxu_f32",
-                                target_sizes=[3] * k) == tensor
+                                plane_words=11 * words,
+                                target_sizes=[3] * k) == ints
+    # the first K2's byte-plane bound stays reachable beside it: 2*N*K*4C
+    # int8 operations, about 0.27 ms
+    assert km.byte_plane_ops(n, k, c) == 2 * n * k * 4 * c
+    tensor = km.byte_plane_ops(n, k, c) / km.PEAK_INT8_TENSOR_OPS
+    assert 0.26e-3 < tensor < 0.28e-3
+    assert km.byte_plane_seconds(n, k, w, c) == max(
+        ints, tensor, km.kernel_bytes(n, k, w, c) / km.HBM_BW) == tensor
+    assert km.byte_plane_seconds(n, k, w, c) > km.predicted_seconds(
+        n, k, w, c, accum="mxu_f32", plane_words=11 * words)
     # the horizontal count stays reachable, and the JAX model's beside it
     assert km.horizontal_flops(n, k, w, c) == n * k * w
     assert jkm.kernel_flops(n, k, w, c) == n * k * (2 * w + c)
@@ -326,10 +345,13 @@ def test_kernel_model_mxu_bound():
     # hits do not enter K2's bound: its adds run on the tensor cores
     assert km.predicted_seconds(n, k, w, c, hits=n * k, accum="mxu_f32") \
         == km.predicted_seconds(n, k, w, c, accum="mxu_f32")
-    assert km.bound_by(n, k, w, c, accum="mxu_f32") == "operations"
-    # C >> W makes the tensor term the larger one
-    assert km.predicted_seconds(1000, 1000, 1, 64, accum="mxu_f32") == \
-        km.tensor_ops(1000, 1000, 64) / km.PEAK_INT8_TENSOR_OPS
+    # full-range weights keep all 64 planes of 2 classes live in every word:
+    # the b1 term is the larger one
+    g = (1 << 20, 4096, 2, 2)
+    full = 64 * (1 << 15)
+    assert km.predicted_seconds(*g, accum="mxu_f32", plane_words=full) == \
+        km.b1_ops(4096, full) / km.PEAK_B1_TENSOR_OPS
+    assert km.bound_by(*g, accum="mxu_f32", plane_words=full) == "operations"
 
 
 def test_cuda_requested_without_card_raises():
@@ -405,6 +427,25 @@ def test_record_launch_publishes_measured_against_predicted():
         eff = obs.kernel_efficiency()[km.geometry_bucket(1000, 10, 2, 2)]
         assert eff["launches"] == 1 and eff["measured_s"] == 0.5
         assert eff["predicted_s"] == km.predicted_seconds(1000, 10, 2, 2)
+    finally:
+        obs.reset()
+
+
+def test_record_launch_predicts_with_the_launch_route():
+    """A K2 launch is held against K2's bound with C live planes in every
+    row-word."""
+    from repro_torch import obs
+    from repro_torch.roofline import kernel_model as km
+
+    geom = (1 << 16, 1 << 16, 2, 16)
+    obs.reset()
+    try:
+        km.record_launch(*geom, 0.5, accum="mxu_f32")
+        eff = obs.kernel_efficiency()[km.geometry_bucket(*geom)]
+        want = km.predicted_seconds(*geom, accum="mxu_f32",
+                                    plane_words=16 * (1 << 11))
+        assert eff["predicted_s"] == want
+        assert want != km.predicted_seconds(*geom)
     finally:
         obs.reset()
 
@@ -513,8 +554,9 @@ def test_kernel_timings_are_read_without_waiting_until_snapshot():
     obs.reset()
     try:
         finished, running = _Event(3.0, True), _Event(9.0, False)
-        ops._PENDING[:] = [(_Event(1.0, True), finished, 1000, 10, 2, 2),
-                           (_Event(5.0, True), running, 1000, 10, 2, 2)]
+        ops._PENDING[:] = [
+            (_Event(1.0, True), finished, 1000, 10, 2, 2, "vpu_int32"),
+            (_Event(5.0, True), running, 1000, 10, 2, 2, "vpu_int32")]
         ops.flush_timings(wait=False)
         geom = km.geometry_bucket(1000, 10, 2, 2)
         eff = obs.kernel_efficiency(obs.REGISTRY.snapshot())[geom]
@@ -761,4 +803,260 @@ def test_cuda_kernel_knobs_and_wide_targets(n, k, w, c, big):
     for bk in (1, 32, 96, 1024):
         for bn in (1, 100, 4096):
             got = itemset_counts(*args, block_k=bk, block_n=bn)
+            assert torch.equal(got, want), (bk, bn)
+
+
+# -- K2's bit-sliced form: all 32 weight planes, the whole-launch masks -------
+
+from repro_torch.kernels.itemset_count import b1_probe
+from repro_torch.kernels.itemset_count.ref import (b1_tile_ref, live_planes,
+                                                   live_plane_words,
+                                                   whole_masks)
+
+PLANE_CASES = [
+    # (N, K, W, C, block_n, weights): ragged N, the empty and single-item
+    # targets (``_sliced_problem``), W up to 65, C up to 17; small weights
+    # keep every partial sum of the f32 route below 2^24
+    (1, 3, 1, 1, 512, "small"),
+    (31, 9, 2, 2, 96, "small"),
+    (33, 20, 1, 3, 1, "small"),
+    (200, 17, 2, 2, 100, "negative"),
+    (1000, 40, 3, 17, 4096, "small"),
+    (777, 30, 5, 2, 512, "negative"),
+    (333, 12, 65, 2, 4096, "small"),
+    (4099, 25, 2, 1, 1024, "negative"),
+]
+
+
+@pytest.mark.parametrize("n,k,w,c,bn,weights", PLANE_CASES)
+def test_plane_sliced_counts_match_jax_mxu(n, k, w, c, bn, weights):
+    """K2's plain version, every live plane of the bit-sliced form (and all
+    32 planes at once), equals the JAX package's f32 route in interpret
+    mode within its 2^24 contract."""
+    tx, tgt, wts, _ = _sliced_problem(n, k, w, c, weights, n * 5 + w + c)
+    sw = -(-bn // 32)
+    t_tx, t_tgt, t_w = _t(tx, tgt, wts)
+    cols = to_item_columns(t_tx)
+    planes, live = to_weight_planes(t_w, sw)
+    want = _jax(tx, tgt, wts, accum="mxu_f32", block_k=32, block_n=256)
+    got = itemset_counts_sliced(cols, planes, live, t_tgt, sw, block_k=9)
+    assert np.array_equal(got.numpy(), want)
+    every = torch.full_like(live.view(torch.int32), -1).view(torch.uint32)
+    got = itemset_counts_sliced(cols, planes, every, t_tgt, sw)
+    assert np.array_equal(got.numpy(), want)
+    # the wrapper's route on the CPU is the same function
+    assert np.array_equal(itemset_counts(
+        t_tx, t_tgt, t_w, accum="mxu_f32", block_n=bn).numpy(), want)
+
+
+@pytest.mark.parametrize("n,k,w,c,weights", [
+    (300, 20, 2, 2, "full"), (1000, 30, 3, 3, "full"),
+    (777, 15, 65, 2, "negative"), (100, 9, 1, 17, "full")])
+def test_plane_sliced_counts_match_jax_vpu_full_range(n, k, w, c, weights):
+    """Over all 32 two's-complement planes the plain version is the
+    wrapping int32 sum for any weights, where the f32 route would round: it
+    equals the JAX package's vpu_int32 route."""
+    tx, tgt, wts, _ = _sliced_problem(n, k, w, c, weights, n + k * 3 + c)
+    t_tx, t_tgt, t_w = _t(tx, tgt, wts)
+    planes, _ = to_weight_planes(t_w, 1)
+    every = torch.full((c, 1), -1, dtype=torch.int32).view(torch.uint32)
+    got = itemset_counts_sliced(to_item_columns(t_tx), planes, every, t_tgt,
+                                -(-n // 32))
+    want = _jax(tx, tgt, wts, accum="vpu_int32")
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), np.asarray(jax_ref(
+        jnp.asarray(tx), jnp.asarray(tgt), jnp.asarray(wts))))
+
+
+@pytest.mark.parametrize("weights,c", [("small", 2), ("negative", 3),
+                                       ("full", 2), ("small", 17)])
+def test_whole_masks_and_live_plane_list_match_the_planes(weights, c):
+    """The whole-launch mask of a class is the OR of its weights (bit b set
+    iff plane b has a set bit), the packed list holds exactly the nonzero
+    planes, bit-major, and counting over the listed planes alone gives the
+    counts of all 32."""
+    tx, tgt, wts, _ = _sliced_problem(500, 20, 2, c, weights, 31 + c)
+    if weights == "small":
+        wts[:, 0] = np.where(wts[:, 0] == 5, 300, wts[:, 0])   # planes 2, 3, 5, 8
+    t_tx, t_tgt, t_w = _t(tx, tgt, wts)
+    planes, live = to_weight_planes(t_w, 4)
+    whole = whole_masks(t_w)
+    u = wts.view(np.uint32)
+    assert np.array_equal(whole.view(torch.int32).numpy().view(np.uint32),
+                          np.bitwise_or.reduce(u, axis=0))
+    # whole = OR over the stages' live masks
+    assert np.array_equal(
+        whole.view(torch.int32).numpy().view(np.uint32),
+        np.bitwise_or.reduce(live.view(torch.int32).numpy().view(np.uint32),
+                             axis=1))
+    codes = live_planes(whole).tolist()
+    nonzero = (planes.view(torch.int32) != 0).any(-1)        # (C, 32)
+    assert sorted(codes) == sorted(32 * ci + b for ci in range(c)
+                                   for b in range(32) if nonzero[ci, b])
+    assert codes == sorted(codes, key=lambda x: (x % 32, x // 32))
+    only = torch.zeros((c, 1), dtype=torch.int64)
+    for code in codes:
+        only[code // 32, 0] |= 1 << (code % 32)
+    only = torch.where(only >= 1 << 31, only - (1 << 32), only).to(
+        torch.int32).view(torch.uint32)
+    got = itemset_counts_sliced(to_item_columns(t_tx), planes, only, t_tgt,
+                                -(-500 // 32))
+    assert np.array_equal(got.numpy(), np.asarray(jax_ref(
+        jnp.asarray(tx), jnp.asarray(tgt), jnp.asarray(wts))))
+    # C = 2 with planes 0-8 and 0-1 live packs into 2 n8 tiles, not 3
+    if weights == "small" and c == 2:
+        assert len(codes) <= 16
+
+
+@pytest.mark.parametrize("n,c,seed", [(1, 1, 0), (100, 2, 1), (999, 3, 2),
+                                      (4096, 17, 3)])
+def test_live_plane_words_count_the_set_bits_per_row_word(n, c, seed):
+    """The live plane words are, per 32-row word, the (class, bit) pairs
+    with a set bit in some row of the word: never more than the whole-launch
+    planes in every word, and 0 for no weights."""
+    rng = np.random.default_rng(seed)
+    wts = rng.integers(0, 4, size=(n, c), dtype=np.int32)
+    wts[rng.random(n) < 0.01, 0] = -5          # the sign plane, now and then
+    u = wts.view(np.uint32).astype(np.uint64)
+    want = 0
+    for j in range(0, n, 32):
+        orr = np.bitwise_or.reduce(u[j:j + 32], axis=0)
+        want += sum(bin(int(x)).count("1") for x in orr)
+    t_w = torch.from_numpy(wts)
+    assert live_plane_words(t_w) == want
+    assert want <= live_planes(whole_masks(t_w)).numel() * -(-n // 32)
+    assert live_plane_words(torch.zeros((n, c), dtype=torch.int32)) == 0
+
+
+def test_live_plane_list_of_no_weights_is_empty():
+    assert live_planes(whole_masks(torch.zeros((5, 3), dtype=torch.int32))
+                       ).numel() == 0
+    assert live_planes(whole_masks(torch.zeros((0, 2), dtype=torch.int32))
+                       ).numel() == 0
+
+
+def test_b1_tile_plain_version_and_cpu_wrapper():
+    """The plain b1 product: d[r, n] = sum_j popc(a[r, j] & b[n, j]); the
+    wrapper runs it for CPU tensors without a launch."""
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 2 ** 32, size=(16, 8), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, size=(8, 8), dtype=np.uint32)
+    a[3] = 0xFFFFFFFF
+    want = np.array([[sum(bin(int(a[r, j]) & int(b[n, j])).count("1")
+                          for j in range(8)) for n in range(8)]
+                     for r in range(16)])
+    ta, tb = (torch.from_numpy(x.view(np.int32)).view(torch.uint32)
+              for x in (a, b))
+    assert np.array_equal(b1_tile_ref(ta, tb).numpy(), want)
+    before = ops.KERNEL_LAUNCHES
+    assert np.array_equal(b1_probe.b1_tile(ta, tb).numpy(), want)
+    assert ops.KERNEL_LAUNCHES == before
+
+
+def test_bit_slice_wrapper_on_cpu_is_k2s_plain_layout():
+    rng = np.random.default_rng(18)
+    tx, _, wts = random_problem(rng, 100, 1, 3, 2)
+    wts[::5, 1] = -7
+    t_tx, t_w = _t(tx, wts)
+    cols, planes, live, whole, sw = ops.bit_slice(t_tx, t_w, block_n=96,
+                                                  accum="mxu_f32")
+    assert sw == 3
+    want_p, want_l = to_weight_planes(t_w, sw)
+    assert torch.equal(cols, to_item_columns(t_tx))
+    assert torch.equal(planes, want_p) and torch.equal(live, want_l)
+    assert torch.equal(whole, whole_masks(t_w))
+    assert tuple(planes.shape) == (2, 32, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_b1_tile_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    rng = np.random.default_rng(10)
+    for _ in range(4):
+        a, b = (torch.from_numpy(rng.integers(0, 2 ** 32, size=s,
+                                              dtype=np.uint32).view(np.int32))
+                .view(torch.uint32) for s in ((16, 8), (8, 8)))
+        got = b1_probe.b1_tile(a.cuda(), b.cuda()).cpu()
+        assert torch.equal(got, b1_tile_ref(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,c,bn,sw", [
+    (1, 2, 2, 512, 32),             # at least one 32-row-word stage
+    (969130, 2, 2, 512, 32),        # the main path: 1024 rows a stage
+    (969130, 2, 2, 1, 32),
+    (969130, 2, 2, 1025, 64),       # 1025 rows -> 33 words -> 64
+    (969130, 2, 2, 4096, 128),
+    (200, 2, 2, 4096, 32),          # no more than the rows need
+    (5000, 8, 2, 4096, 64),         # cut to fit 227 KB: 128 -> 64
+    (5000, 65, 17, 512, 32),        # nothing fits: read from device memory
+])
+def test_k2_stage_rounding(n, w, c, bn, sw):
+    """K2's stage geometry (``sliced_geometry(..., "mxu_f32")``, owned by
+    ``csrc/bitslice.cuh``) and the scratch layout it reports."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    g = ops.sliced_geometry(n, w, c, bn, "mxu_f32")
+    assert g.stage_words == sw and g.stages == -(-(-(-n // 32)) // sw)
+    nwp = g.padded_words
+    assert nwp == g.stages * sw and nwp * 32 >= n
+    assert g.heavy == g.odd == -1
+    assert g.planes == (32 * w + 1) * nwp
+    assert g.live == g.planes + 32 * c * nwp
+    assert g.whole == g.live + c * g.stages and g.words == g.whole + c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,c,bn", [(1, 1, 1, 512), (1000, 2, 2, 100),
+                                      (4099, 5, 3, 4096), (2000, 65, 17, 512),
+                                      (300, 300, 2, 512)])
+def test_cuda_k2_layout_pass_matches_plain_layout(n, w, c, bn):
+    """K2's layout pass equals to_item_columns / to_weight_planes /
+    whole_masks bit for bit over the rows, and its pad words up to whole
+    stages are zero (ones in the all-ones column)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + w + 1)
+    tx, _, _ = random_problem(rng, n, 1, w, c)
+    wts = rng.integers(-(1 << 31), 1 << 31, size=(n, c),
+                       dtype=np.int64).astype(np.int32)
+    t_tx, t_w = [t.to(dev) for t in _t(tx, wts)]
+    got = ops.bit_slice(t_tx, t_w, block_n=bn, accum="mxu_f32")
+    planes, live = to_weight_planes(t_w.cpu(), got.stage_words)
+    words = -(-n // 32)
+    cols = got.columns.view(torch.int32).cpu()
+    assert torch.equal(cols[:, :words],
+                       to_item_columns(t_tx.cpu()).view(torch.int32))
+    assert not cols[:-1, words:].any() and (cols[-1, words:] == -1).all()
+    pl = got.planes.view(torch.int32).cpu()
+    assert torch.equal(pl[..., :words], planes.view(torch.int32))
+    assert not pl[..., words:].any()
+    assert torch.equal(got.live.view(torch.int32).cpu(), live.view(torch.int32))
+    assert torch.equal(got.whole.view(torch.int32).cpu(),
+                       whole_masks(t_w.cpu()).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,w,c,big", [(5000, 60, 3, 2, False),
+                                         (3001, 50, 2, 5, True),
+                                         (2000, 50, 65, 2, False)])
+def test_cuda_k2_knobs_and_wide_targets(n, k, w, c, big):
+    """K2 honours block_n: every block_k and block_n (1, 96, 4096 and the
+    stage-rounding edges) gives the plain version's counts, also for targets
+    of more than 3 items and full-range weights (all 64 planes live)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    dev = torch.device("cuda")
+    tx, tgt, wts, rng = _sliced_problem(n, k, w, c, "full", n + k + 1)
+    if big:
+        tgt[2:] = tx[:k - 2] & rng.integers(0, 2 ** 32, size=(k - 2, w),
+                                             dtype=np.uint32)
+    args = [t.to(dev) for t in _t(tx, tgt, wts)]
+    want = itemset_counts(*args, use_kernel=False)
+    for bk in (1, 32, 96, 1024):
+        for bn in (1, 96, 1024, 1025, 4096):
+            got = itemset_counts(*args, block_k=bk, block_n=bn,
+                                 accum="mxu_f32")
             assert torch.equal(got, want), (bk, bn)
