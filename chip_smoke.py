@@ -63,9 +63,39 @@ phase, and fail on the first phase that fails.
     on the 1M-row DB, ``gfp_mine_frequent`` equal to the dense backend's
     frequent set, and the launcher's ``--backend auto --verify`` and
     ``--backend gfp --verify`` at 200,000 rows against the host oracle.
+12. The disk tier at the spill threshold, untuned: a DB of 136,000,000
+    rows x 60 items (W = 2, each bit set with p = 1/8, a rare class with
+    p_y = 0.01, one-hot weights, not deduplicated; 2.176e9 bytes, just over
+    ``DEFAULT_SPILL_THRESHOLD_BYTES`` = 2^31), generated blockwise from
+    seed 0 and made a resident ``DenseDB``; ``backend_for_db`` must pick
+    ``spilled`` by itself and spill into ``build/spill/`` (the write's time
+    and rate from the ``spill.write`` span); ``SpilledDB.open`` the store
+    again; ``spilled_counts`` at K = 60, 1,770 and 34,220, prefetch on and
+    off, each ``torch.equal`` to K1's one dense pass, with the segments,
+    bytes read, wall time, read rate, prefetch hit ratio, a
+    ``torch.profiler`` trace's kernel time and device idle share, and K3's
+    bound summed over the segments; four pairs counted in numpy over all
+    rows; the pair sweep again after the segments are dropped from the page
+    cache; the ``SpilledBackend`` mine at min_count ceil(0.01 N) equal to
+    the ``DenseBackend`` mine (60 singles and 1,770 pairs), and again under
+    a table pinned to ``mxu_f32`` (K3 through K2).  The store is deleted at
+    the end.
+13. The mesh runtime on the one card, untuned: (a) one NCCL rank, mesh
+    (1, 1): ``distributed_counts`` at the main-path geometries (and level 2
+    less one target) equal to K1's dense counts and ``DistributedMiner``'s
+    mine equal to the dense mine; (b) two gloo ranks sharing the card
+    (``torch.multiprocessing``, a ``FileStore`` under ``build/mesh/``,
+    joined with a timeout), meshes (2, 1) and (1, 2), each rank counting its
+    shard or target block with K1 on the card and checking the counts and
+    the mine itself; then a chunked mine (chunk_rows 131,072) on (2, 1)
+    stopped after chunk 3 of level 3 and resumed from rank 0's checkpoint
+    on the (1, 1) NCCL mesh, equal to the uninterrupted mine.  Each rank's
+    per-launch kernel time (the wrapper's CUDA events) and the all-reduce's
+    time and bytes are printed.
 
 The last lines are the card's name and power limit, the kernels' JSON
-record (K1, K2 and K3, the accumulate-into launch) and
+record (K1, K2 and K3, the accumulate-into launch; with the launches on the
+spilled path and on each rank of each mesh) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -88,6 +118,12 @@ MAIN = dict(n=1_000_000, items=60, p_x=0.125, p_y=0.01, seed=0,
 STREAM_CHUNK_ROWS = 131072
 KERNEL_RUNS = 7
 PLAIN_RUNS = 3
+# Phase 12's DB: just over the disk tier's 2 GiB host-RAM budget (the §4.3
+# Bernoulli model, p_x = 1/8, unit one-hot weights, not deduplicated).
+SPILL_DB = dict(n=136_000_000, items=60, p_y=0.01, seed=0)
+SPILL_PAIRS = ((0, 1), (17, 42), (31, 32), (58, 59))   # the numpy check
+MESH_JOIN_S = 300
+MESH_KILL = (3, 3)      # the two-rank chunked mine stops after this chunk
 
 
 def _phase(name):
@@ -220,6 +256,602 @@ def _time_ms(fn, runs, warmup):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _bernoulli_db(n, p_y, seed, block=1 << 23):
+    """Phase 12's DB, blockwise from ``seed``: 60 item bits a row (W = 2),
+    each set with p = 1/8 as the AND of three uniform words, bits 60-63
+    off; a rare class with ``p_y``; one-hot int32 weights (C = 2)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bits = np.empty((n, 2), np.uint32)
+    w = np.empty((n, 2), np.int32)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        b = rng.integers(0, 2 ** 32, size=(e - s, 2), dtype=np.uint32)
+        b &= rng.integers(0, 2 ** 32, size=(e - s, 2), dtype=np.uint32)
+        b &= rng.integers(0, 2 ** 32, size=(e - s, 2), dtype=np.uint32)
+        b[:, 1] &= np.uint32((1 << 28) - 1)
+        bits[s:e] = b
+        y = rng.random(e - s) < p_y
+        w[s:e, 1] = y
+        w[s:e, 0] = ~y
+    return bits, w
+
+
+def _numpy_pair_counts(bits, w, pairs, block=1 << 23):
+    """Per-class counts of item pairs over all rows, in numpy: the check
+    that shares no code with the port."""
+    import numpy as np
+    out = np.zeros((len(pairs), w.shape[1]), np.int64)
+    one = np.uint32(1)
+    for s in range(0, len(bits), block):
+        b, ww = bits[s:s + block], w[s:s + block]
+        for i, (x, y) in enumerate(pairs):
+            hit = ((b[:, x >> 5] >> np.uint32(x & 31))
+                   & (b[:, y >> 5] >> np.uint32(y & 31)) & one).astype(bool)
+            out[i] += ww[hit].sum(axis=0)
+    return out
+
+
+def _evict(directory):
+    """Drop a store's files from the page cache (clean pages only: the
+    spill fsync'd them), so the next sweep reads the disk."""
+    import os
+    for name in os.listdir(directory):
+        fd = os.open(os.path.join(directory, name), os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def _launch_ms(obs, fn):
+    """``fn()`` and its kernels' mean device time per launch (CUDA events
+    of the wrapper's kernel timing), or None without a launch."""
+    from repro_torch.obs import counter_total
+    before = obs.snapshot()
+    out = fn()
+    after = obs.snapshot()
+    n = (counter_total(after, "kernel_launches_total")
+         - counter_total(before, "kernel_launches_total"))
+    s = (counter_total(after, "kernel_measured_s_total")
+         - counter_total(before, "kernel_measured_s_total"))
+    return (s / n * 1e3 if n else None), out
+
+
+class _Stop(Exception):
+    """Stops a mine at a chosen chunk (phase 13's kill)."""
+
+
+def _allreduce_ms(dist, block, runs=20):
+    """Host-clock time of one all-reduce of ``block`` (on the card, between
+    synchronisations)."""
+    import torch
+    cuda = block.is_cuda
+    dist.all_reduce(block)
+    if cuda:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(runs):
+        dist.all_reduce(block)
+    if cuda:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / runs
+
+
+def _mesh_rank(rank, world, store, payload_path, out_dir):
+    """One of phase 13's two gloo ranks sharing the card: the main-path
+    geometries on meshes (2, 1) and (1, 2), each rank counting its shard
+    or target block with K1 on the card, the mine on each, then a chunked
+    mine on (2, 1) stopped after chunk ``kill`` of its level."""
+    import datetime
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.mining import ItemVocab, MiningCheckpoint
+    from repro_torch.mining.distributed import (DistributedMiner,
+                                                distributed_counts)
+    from repro_torch.roofline import autotune
+
+    autotune.set_active_table(None)
+    with open(payload_path, "rb") as f:
+        p = pickle.load(f)
+    vocab = ItemVocab(tuple(p["items"]))
+    dev = torch.device("cuda")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    out = {"rank": rank, "meshes": {}}
+    try:
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_host_mesh(*shape, device_type="cpu")
+            # the second pass is timed: the first loads the kernels
+            for _ in range(2):
+                ops.KERNEL_LAUNCHES = 0
+                per_launch = {}
+                for label, m, want in zip(p["labels"], p["masks"],
+                                          p["dense"]):
+                    ms, got = _launch_ms(obs, lambda: distributed_counts(
+                        p["ub"], m, p["uw"], mesh, device=dev))
+                    if not np.array_equal(got, want):
+                        raise AssertionError(f"rank {rank}, mesh {shape}, "
+                                             f"{label}: != K1's dense counts")
+                    per_launch[f"{label} K={m.shape[0]}"] = ms
+            counted = ops.KERNEL_LAUNCHES
+            ops.KERNEL_LAUNCHES = 0
+            got = DistributedMiner(mesh, device=dev).mine_frequent(
+                p["ub"], p["uw"], vocab, p["min_count"], class_column=1)
+            if got != p["want"]:
+                raise AssertionError(f"rank {rank}, mesh {shape}: mine != "
+                                     "the dense mine")
+            k_pad = -(-max(m.shape[0] for m in p["masks"]) // shape[1]) \
+                * shape[1]
+            block = torch.zeros((k_pad, 2), dtype=torch.int32)
+            out["meshes"][str(shape)] = dict(
+                coord=mesh.get_coordinate(), kernel_ms=per_launch,
+                count_launches=counted, mine_launches=ops.KERNEL_LAUNCHES,
+                allreduce_ms=_allreduce_ms(dist, block),
+                allreduce_bytes=block.numel() * 4)
+        mesh = make_host_mesh(2, 1, device_type="cpu")
+
+        def stop(level, j):
+            if (level, j) == tuple(p["kill"]):
+                raise _Stop()
+
+        try:
+            DistributedMiner(
+                mesh, chunk_rows=p["chunk_rows"], device=dev,
+                checkpoint=MiningCheckpoint(p["ckpt"])).mine_frequent(
+                    p["ub"], p["uw"], vocab, p["min_count"], class_column=1,
+                    on_chunk=stop)
+            raise AssertionError(f"rank {rank}: the chunked mine did not "
+                                 f"stop at {p['kill']}")
+        except _Stop:
+            out["stopped"] = list(p["kill"])
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _disk_tier(dev):
+    """Phase 12: the disk tier at the spill threshold (see the module
+    docstring).  Returns the launch counts and sweep numbers it read."""
+    import math
+    import os
+    import shutil
+    from itertools import combinations
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.kernels.itemset_count.ops import itemset_counts
+    from repro_torch.mining import (DenseBackend, DenseDB, ItemVocab,
+                                    backend_for_db, encode_targets,
+                                    mine_frequent_backend)
+    from repro_torch.mining.spill import (DEFAULT_SPILL_THRESHOLD_BYTES,
+                                          SpilledBackend, SpilledDB,
+                                          spilled_counts)
+    from repro_torch.obs import counter_total
+    from repro_torch.roofline import autotune, kernel_model
+
+    autotune.set_active_table(None)
+    n = SPILL_DB["n"]
+    t = time.perf_counter()
+    bits, w = _bernoulli_db(n, SPILL_DB["p_y"], SPILL_DB["seed"])
+    footprint = bits.nbytes + w.nbytes
+    print(f"   db: {n} rows x {SPILL_DB['items']} items (W=2, C=2, p_x 1/8, "
+          f"p_y {SPILL_DB['p_y']}, not deduplicated), {int(w[:, 1].sum())} "
+          f"rare-class rows, generated in {time.perf_counter() - t:.3f} s; "
+          f"footprint {footprint} bytes against the spill threshold "
+          f"{DEFAULT_SPILL_THRESHOLD_BYTES}")
+    if footprint <= DEFAULT_SPILL_THRESHOLD_BYTES:
+        raise AssertionError("the DB does not exceed the spill threshold")
+    vocab = ItemVocab(tuple(range(SPILL_DB["items"])))
+    t = time.perf_counter()
+    ddb = DenseDB.from_arrays(vocab, bits, w, n_rows=n, n_classes=2,
+                              device=dev)
+    tx_d, w_d = ddb.bits, ddb.weights
+    torch.cuda.synchronize()
+    print(f"   resident DenseDB on the card in {time.perf_counter() - t:.3f} "
+          f"s")
+    spill_dir = ROOT / "build" / "spill"
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    os.environ["REPRO_TORCH_SPILL_DIR"] = str(spill_dir)
+    obs.configure(tracing=True)
+    obs.TRACER.reset()
+    out = {}
+    sdb = None
+    try:
+        t = time.perf_counter()
+        backend, choice = backend_for_db(
+            ddb, spill_threshold_bytes=DEFAULT_SPILL_THRESHOLD_BYTES)
+        t_choose = time.perf_counter() - t
+        obs.configure(tracing=False)
+        if choice.name != "spilled":
+            raise AssertionError(f"the chooser picked {choice.name!r} for "
+                                 f"{footprint} bytes, not 'spilled'")
+        write = [sp for sp in obs.TRACER.spans() if sp.name == "spill.write"]
+        write_s = write[-1].t1 - write[-1].t0
+        print(f"   backend_for_db: {choice.name} ({choice.reason}); "
+              f"{t_choose:.3f} s in all; the spill.write span "
+              f"{write_s:.3f} s, {footprint / write_s / 1e9:.3f} GB/s "
+              f"(segments fsync'd, the manifest last) into "
+              f"{spill_dir.relative_to(ROOT)}")
+        del backend
+        sdb = SpilledDB.open(str(spill_dir), device=dev)
+        spans = np.cumsum((0,) + sdb.seg_rows)
+        spans = list(zip(spans[:-1].tolist(), spans[1:].tolist()))
+        print(f"   SpilledDB.open: {sdb.n_chunks} segments of chunk_rows "
+              f"{sdb.chunk_rows} (the last {sdb.seg_rows[-1]} rows), "
+              f"{sdb.nbytes} bytes; untuned (autotune table: "
+              f"{autotune.describe_active()})")
+
+        items = list(vocab.items)
+        geoms = [("singles", [(a,) for a in items]),
+                 ("pairs", list(combinations(items, 2))),
+                 ("triples", list(combinations(items, 3)))]
+        trace_dir = ROOT / "build" / "traces"
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        obs.configure(kernel_timing=False)
+        sweeps = []
+        pair_rows = {}
+        for label, targets in geoms:
+            masks = encode_targets(targets, vocab)
+            k = masks.shape[0]
+            tgt_d = torch.from_numpy(masks).to(dev)
+            dense = itemset_counts(tx_d, tgt_d, w_d, accum="vpu_int32")
+            # K3's bound: the segments' bounds, each with its contained
+            # pairs (unit one-hot weights: a row adds 1 to one class)
+            sizes = _target_sizes(tgt_d)
+            bound = 0.0
+            for s0, e0 in spans:
+                hits = int(itemset_counts(tx_d[s0:e0], tgt_d, w_d[s0:e0],
+                                          accum="vpu_int32").sum())
+                bound += kernel_model.predicted_seconds(
+                    e0 - s0, k, 2, 2, hits=hits, target_sizes=sizes) * 1e3
+            walls = {True: [], False: []}
+            ratio = read = None
+            for _ in range(2):
+                for prefetch in (True, False):
+                    before = obs.snapshot()
+                    t = time.perf_counter()
+                    got = spilled_counts(sdb, masks, prefetch=prefetch)
+                    torch.cuda.synchronize()
+                    walls[prefetch].append((time.perf_counter() - t) * 1e3)
+                    after = obs.snapshot()
+                    if not torch.equal(got, dense):
+                        raise AssertionError(f"spilled sweep (prefetch "
+                                             f"{prefetch}) != K1's dense "
+                                             f"pass at {label}")
+                    read = (counter_total(after, "spill_bytes_read_total")
+                            - counter_total(before, "spill_bytes_read_total"))
+                    if prefetch:
+                        hit = (counter_total(after, "spill_prefetch_hits_total")
+                               - counter_total(before,
+                                               "spill_prefetch_hits_total"))
+                        ratio = hit / sdb.n_chunks
+            if read != footprint:
+                raise AssertionError(f"{label}: a sweep read {read} bytes, "
+                                     f"the store holds {footprint}")
+            trace = trace_dir / f"spill_{label}.json"
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                spilled_counts(sdb, masks, prefetch=True)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            kern, h2d = _device_intervals(trace)
+            rec = dict(geometry=label, k=k, segments=sdb.n_chunks,
+                       bytes_read=read, wall_ms_prefetch=walls[True],
+                       wall_ms_sync=walls[False], hit_ratio=ratio,
+                       k3_bound_ms=bound)
+            best = min(walls[True])
+            line = (f"   {label}: K={k}, {sdb.n_chunks} segments, {read} "
+                    f"bytes read a sweep; wall ms prefetch on "
+                    f"{' / '.join(f'{x:.1f}' for x in walls[True])}, off "
+                    f"{' / '.join(f'{x:.1f}' for x in walls[False])} (two "
+                    f"runs each, kernel timing off); read "
+                    f"{read / best / 1e6:.3f} GB/s at the faster prefetch "
+                    f"run; prefetch hit ratio {ratio:.3f}; K3 bound "
+                    f"{bound:.4f} ms (the segments' sum)")
+            if kern:
+                ku, hu = _union(kern), _union(h2d)
+                span = (max(e for _, e in ku + hu)
+                        - min(s for s, _ in ku + hu))
+                busy = _length(_union(kern + h2d))
+                rec.update(kernels_ms=_length(ku) / 1e3,
+                           h2d_ms=_length(hu) / 1e3, span_ms=span / 1e3,
+                           idle=1 - busy / span)
+                if rec["kernels_ms"] < bound:
+                    raise AssertionError(f"{label}: the sweep's kernels took "
+                                         f"{rec['kernels_ms']:.4f} ms, below "
+                                         f"the K3 bound {bound:.4f} ms")
+                line += (f"; profiled: device span {span / 1e3:.3f} ms, "
+                         f"kernels {rec['kernels_ms']:.3f} ms, H2D copies "
+                         f"{rec['h2d_ms']:.3f} ms ({len(h2d)}), device idle "
+                         f"{rec['idle']:.1%} of the span")
+            else:
+                line += "; the profiler recorded no device events"
+            print(line, flush=True)
+            sweeps.append(rec)
+            if label == "pairs":
+                pair_rows = {pr: dense[targets.index(pr)].cpu().numpy()
+                             for pr in SPILL_PAIRS}
+                pair_masks, pair_dense = masks, dense
+        # the numpy check of four pairs over all rows, independent of both
+        t = time.perf_counter()
+        want = _numpy_pair_counts(bits, w, SPILL_PAIRS)
+        for pr, row in zip(SPILL_PAIRS, want):
+            if not np.array_equal(pair_rows[pr], row):
+                raise AssertionError(f"pair {pr}: K1 and the spilled sweeps "
+                                     f"count {pair_rows[pr]}, numpy {row}")
+        print(f"   numpy check, pairs {SPILL_PAIRS} over all {n} rows: "
+              f"{want.tolist()} == K1's dense pass == every spilled sweep "
+              f"({time.perf_counter() - t:.3f} s)")
+        # the host copy alone: every segment from the mmap into a pinned
+        # buffer on one thread, the page cache warm and then dropped
+        pin = [torch.empty((sdb.chunk_rows, c), dtype=dt, pin_memory=True)
+               for c, dt in ((2, torch.uint32), (2, torch.int32))]
+        for cold in (False, True):
+            if cold:
+                _evict(sdb.directory)
+            t = time.perf_counter()
+            for j in range(sdb.n_chunks):
+                for buf, a in zip(pin, sdb.segment(j)):
+                    buf[:a.shape[0]].numpy()[...] = a
+            ms = (time.perf_counter() - t) * 1e3
+            sweeps[1][f"host_copy_ms_{'cold' if cold else 'warm'}"] = ms
+            print(f"   the host copy alone, mmap -> pinned, all "
+                  f"{sdb.n_chunks} segments on one thread"
+                  f"{' after POSIX_FADV_DONTNEED' if cold else ''}: "
+                  f"{ms:.1f} ms, {footprint / ms / 1e6:.3f} GB/s "
+                  f"({ms / min(sweeps[1]['wall_ms_prefetch']):.2f} of the "
+                  f"pair sweep's faster prefetch run)")
+        del pin
+        # the same sweep from the disk: the page cache dropped first
+        for prefetch in (True, False):
+            _evict(sdb.directory)
+            t = time.perf_counter()
+            got = spilled_counts(sdb, pair_masks, prefetch=prefetch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if not torch.equal(got, pair_dense):
+                raise AssertionError("a sweep after the page cache was "
+                                     "dropped != K1's dense pass")
+            sweeps[1][f"cold_wall_ms_{'prefetch' if prefetch else 'sync'}"] \
+                = ms
+            print(f"   pairs after POSIX_FADV_DONTNEED on every segment: "
+                  f"prefetch {'on' if prefetch else 'off'} {ms:.1f} ms, "
+                  f"{footprint / ms / 1e6:.3f} GB/s")
+        obs.configure(kernel_timing=True)
+
+        # the mines: spilled (K3), dense, spilled under mxu_f32 (K3 by K2)
+        min_count = math.ceil(0.01 * n)
+
+        def mine(label, backend, **kw):
+            ops.KERNEL_LAUNCHES = 0
+            ops.KERNEL_LAUNCHES_INTO = 0
+            for key in ops.KERNEL_LAUNCHES_BY_ACCUM:
+                ops.KERNEL_LAUNCHES_BY_ACCUM[key] = 0
+            t = time.perf_counter()
+            freq = mine_frequent_backend(backend, min_count, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            counts = dict(all=ops.KERNEL_LAUNCHES,
+                          into=ops.KERNEL_LAUNCHES_INTO,
+                          **ops.KERNEL_LAUNCHES_BY_ACCUM)
+            print(f"   {label} mine (min_count {min_count}): {len(freq)} "
+                  f"itemsets, {sec:.3f} s, kernel launches {counts}",
+                  flush=True)
+            return freq, counts, sec
+
+        spilled, sp_launch, sp_s = mine("SpilledBackend", SpilledBackend(sdb))
+        dense_f, _, dense_s = mine("DenseBackend (level 1 through K1 too)",
+                                   DenseBackend(ddb), level1_shortcut=False)
+        lens = sorted({len(key) for key in spilled})
+        if spilled != dense_f or len(spilled) != 60 + 1770 or lens != [1, 2]:
+            raise AssertionError(f"spilled mine ({len(spilled)} itemsets of "
+                                 f"sizes {lens}) != dense mine "
+                                 f"({len(dense_f)}), or not the 60 singles "
+                                 f"and 1,770 pairs")
+        if sp_launch["into"] != 3 * sdb.n_chunks:
+            raise AssertionError(f"spilled mine: {sp_launch['into']} K3 "
+                                 f"launches, expected 3 levels x "
+                                 f"{sdb.n_chunks} segments")
+        kind = autotune.device_kind()
+        pinned = {kernel_model.geometry_bucket(r, 1 << e, 2, 2): {
+            "block_k": 128, "block_n": 512, "accum": "mxu_f32",
+            "chunk_rows": 0, "us": 1.0}
+            for r in set(sdb.seg_rows) for e in range(3, 21)}
+        autotune.set_active_table(autotune.table_from_dict(
+            {"schema": 1, "device_kind": kind, "entries": pinned},
+            "<pinned>"))
+        try:
+            mxu, mxu_launch, _ = mine("SpilledBackend, table pinned to "
+                                      "mxu_f32", SpilledBackend(sdb))
+        finally:
+            autotune.set_active_table(None)
+        if mxu != dense_f or mxu_launch["mxu_f32"] != 3 * sdb.n_chunks \
+                or mxu_launch["vpu_int32"] != 0:
+            raise AssertionError(f"spilled mine under mxu_f32: launches "
+                                 f"{mxu_launch}, or itemsets differ")
+        print(f"   the three mines agree: 60 singles and 1,770 pairs, no "
+              f"triple; spilled {sp_s:.3f} s, dense {dense_s:.3f} s")
+        out.update(launches_spilled=sp_launch["into"],
+                   launches_spilled_mxu=mxu_launch["mxu_f32"],
+                   sweeps=sweeps, write_s=write_s, spilled_mine_s=sp_s,
+                   dense_mine_s=dense_s)
+    finally:
+        obs.configure(tracing=False, kernel_timing=True)
+        os.environ.pop("REPRO_TORCH_SPILL_DIR", None)
+        if sdb is not None:
+            sdb.delete()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    del ddb, tx_d, w_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_runtime(dev, ub, uw, vocab, geoms, dense, want_freq, min_count):
+    """Phase 13: the mesh runtime on the one card (see the module
+    docstring).  Returns the launches per rank and the timings."""
+    import datetime
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch import obs
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.mining import MiningCheckpoint
+    from repro_torch.mining.distributed import (DistributedMiner,
+                                                distributed_counts)
+    from repro_torch.roofline import autotune
+
+    autotune.set_active_table(None)
+    mesh_dir = ROOT / "build" / "mesh"
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    mesh_dir.mkdir(parents=True)
+    labels = [label for label, _ in geoms]
+    masks = [m for _, m in geoms]
+    # level 2 less one target: K-blocks of unequal size on (1, 2)
+    labels.append("level 2 less one")
+    masks.append(masks[0][:-1])
+    dense = list(dense) + [dense[0][:-1]]
+    out = {"per_rank": {}}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(mesh_dir / "nccl.store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        per_launch = {}
+        for label, m, want in zip(labels, masks, dense):
+            ms, got = _launch_ms(obs, lambda: distributed_counts(ub, m, uw,
+                                                                 mesh))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"(1, 1) NCCL mesh, {label}: != K1's "
+                                     f"dense counts")
+            per_launch[f"{label} K={m.shape[0]}"] = ms
+        ops.KERNEL_LAUNCHES = 0
+        t = time.perf_counter()
+        got = DistributedMiner(mesh).mine_frequent(ub, uw, vocab, min_count,
+                                                   class_column=1)
+        mine_s = time.perf_counter() - t
+        if got != want_freq:
+            raise AssertionError("(1, 1) NCCL mesh: mine != the dense mine")
+        # one launch a level on every rank: the frequent levels and the
+        # next, whose candidates all fail
+        levels = max(len(key) for key in want_freq) + 1
+        if ops.KERNEL_LAUNCHES != levels:
+            raise AssertionError(f"(1, 1) NCCL mine: {ops.KERNEL_LAUNCHES} "
+                                 f"launches, expected {levels}")
+        block = torch.zeros((masks[1].shape[0], 2), dtype=torch.int32,
+                            device=dev)
+        nccl_ms = _allreduce_ms(dist, block)
+        out["per_rank"]["(1, 1) nccl"] = [ops.KERNEL_LAUNCHES]
+        print(f"   (a) one rank, NCCL, mesh (1, 1): distributed_counts at "
+              f"{len(masks)} geometries == K1's dense counts; per-launch "
+              f"kernel ms {_fmt_ms(per_launch)}; DistributedMiner mine == "
+              f"the dense mine ({len(got)} itemsets, "
+              f"{ops.KERNEL_LAUNCHES} launches, {mine_s:.3f} s); "
+              f"all-reduce of {block.numel() * 4} bytes {nccl_ms:.4f} ms",
+              flush=True)
+
+        # (b) two gloo ranks sharing the card
+        ckpt = mesh_dir / "chunked.json"
+        payload = mesh_dir / "payload.pkl"
+        with open(payload, "wb") as f:
+            pickle.dump(dict(ub=ub, uw=uw, items=list(vocab.items),
+                             labels=labels, masks=masks, dense=dense,
+                             want=want_freq, min_count=min_count,
+                             chunk_rows=STREAM_CHUNK_ROWS, ckpt=str(ckpt),
+                             kill=MESH_KILL), f)
+        ctx = tmp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank, daemon=True,
+                             args=(r, 2, str(mesh_dir / "gloo.store"),
+                                   str(payload), str(mesh_dir)))
+                 for r in range(2)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"two-rank gloo run: exit codes {codes}")
+        ranks = [json.loads((mesh_dir / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        print(f"   (b) two gloo ranks sharing the card, "
+              f"{time.perf_counter() - t:.3f} s with the start-up: every "
+              f"geometry on meshes (2, 1) and (1, 2) == K1's dense counts "
+              f"on both ranks, each rank's mine == the dense mine")
+        for shape in ("(2, 1)", "(1, 2)"):
+            out["per_rank"][f"{shape} gloo"] = [
+                rk["meshes"][shape]["mine_launches"] for rk in ranks]
+            if out["per_rank"][f"{shape} gloo"] != [levels, levels]:
+                raise AssertionError(f"mesh {shape} mine: launches per rank "
+                                     f"{out['per_rank'][f'{shape} gloo']}, "
+                                     f"expected {levels} each")
+            for rk in ranks:
+                me = rk["meshes"][shape]
+                print(f"     mesh {shape}, rank {rk['rank']} at "
+                      f"{tuple(me['coord'])}: per-launch kernel ms "
+                      f"{_fmt_ms(me['kernel_ms'])}; mine "
+                      f"{me['mine_launches']} launches; all-reduce of "
+                      f"{me['allreduce_bytes']} bytes (host copy) "
+                      f"{me['allreduce_ms']:.4f} ms")
+        state = MiningCheckpoint(str(ckpt)).load_state()
+        part = state["partial"]
+        if (part["level"], part["next_chunk"]) != (MESH_KILL[0],
+                                                   MESH_KILL[1] + 1):
+            raise AssertionError(f"checkpoint after the stop: {part['level']}"
+                                 f", next chunk {part['next_chunk']}")
+        resumed = []
+        t = time.perf_counter()
+        got = DistributedMiner(
+            mesh, chunk_rows=STREAM_CHUNK_ROWS,
+            checkpoint=MiningCheckpoint(str(ckpt))).mine_frequent(
+                ub, uw, vocab, min_count, class_column=1,
+                on_chunk=lambda level, j: resumed.append((level, j)))
+        if got != want_freq or resumed[0] != (MESH_KILL[0], MESH_KILL[1] + 1):
+            raise AssertionError(f"resume on (1, 1): first chunk "
+                                 f"{resumed[:1]}, or mine != the dense mine")
+        print(f"   chunked mine (chunk_rows {STREAM_CHUNK_ROWS}) on (2, 1) "
+              f"stopped after chunk {MESH_KILL[1]} of level {MESH_KILL[0]}; "
+              f"rank 0's checkpoint resumed on the (1, 1) NCCL mesh at "
+              f"{resumed[0]}, {time.perf_counter() - t:.3f} s: == the "
+              f"uninterrupted mine")
+        out.update(nccl_allreduce_ms=nccl_ms, nccl_kernel_ms=per_launch,
+                   ranks=ranks)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _fmt_ms(d):
+    return ", ".join(f"{key} {v:.4f}" if v is not None else f"{key} -"
+                     for key, v in d.items())
 
 
 def main() -> int:
@@ -985,6 +1617,19 @@ def main() -> int:
     autotune.set_active_table(None)
     _done(t0)
 
+    # ---- 12. the disk tier at the spill threshold ----------------------------
+    t0 = _phase("12. disk tier at the spill threshold (untuned)")
+    disk = _disk_tier(dev)
+    _done(t0)
+
+    # ---- 13. the mesh runtime on the one card --------------------------------
+    t0 = _phase("13. mesh runtime on the one card (untuned)")
+    dense_k1 = [itemset_counts(tx_d, tgt_d, w_d).cpu().numpy()
+                for _, tgt_d in tgts]
+    mesh_run = _mesh_runtime(dev, ub, uw, db.vocab, geoms, dense_k1,
+                             want_freq, min_count)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -1002,6 +1647,8 @@ def main() -> int:
         "prep_ms": sum(p["prep_ms"] for p in per_launch),
         "horizontal_bound_ms": sum(p["horizontal_bound_ms"]
                                    for p in per_launch),
+        # phase 13: the mesh mine's launches on each rank of each mesh
+        "launches_per_rank": mesh_run["per_rank"],
         "per_launch": per_launch,
     }, {
         "name": "itemset_count_mxu",
@@ -1026,6 +1673,8 @@ def main() -> int:
         "b1_rate": b1_rate,
         "u8_rate": u8_rate,
         "launches_streamed": k3_mxu["mxu_f32"],
+        # phase 12: the spilled mine under a table pinned to mxu_f32
+        "launches_spilled": disk["launches_spilled_mxu"],
         "per_launch": per_launch_mxu,
     }, {
         "name": "itemset_count_into",
@@ -1045,6 +1694,9 @@ def main() -> int:
         "library_ms": None,
         "wall_ms": sum(p["k3_wall_ms"] for p in per_launch),
         "launches_through_k2": k3_mxu["mxu_f32"],
+        # phase 12: the spilled mine, untuned (3 levels x the segments)
+        "launches_spilled": disk["launches_spilled"],
+        "spilled_sweeps": disk["sweeps"],
     }]}
     print(smi)
     print(json.dumps(record))

@@ -44,10 +44,10 @@ here:
 
 plus ``vocab`` / ``n_rows`` / ``n_classes`` / ``nbytes`` for introspection.
 
-This module implements the protocol for the dense and streaming engines;
-the GFP hybrid lives in ``mining/gfp_backend.py`` and ``mining/chooser.py``
-picks among the three.  The mesh-distributed backend arrives with the
-distributed runtime.
+This module implements the protocol for the dense, streaming and
+mesh-distributed engines; the GFP hybrid lives in ``mining/gfp_backend.py``,
+the disk tier in ``mining/spill.py``, and ``mining/chooser.py`` picks among
+them.
 """
 from __future__ import annotations
 
@@ -197,3 +197,57 @@ class StreamingBackend(CountBackend):
             accum=self.accum, start_chunk=start_chunk, init=init,
             on_chunk=on_chunk, device=self.db.device)
         return _host(rows)
+
+
+class DistributedBackend(CountBackend):
+    """Mesh-sharded counting: wraps a sharded launch closure (see
+    :class:`~repro_torch.mining.distributed.DistributedMiner`, which shards
+    N over the data axes and K over the model axis, and sums the ranks'
+    blocks with one all-reduce).
+
+    With ``n_chunks == 1`` (the default) the closure is ``(masks) -> (K, C)``
+    and the single-chunk resume discipline applies.  With ``chunk_rows``
+    set, the closure must accept the resume keywords (``start_chunk`` /
+    ``init`` / ``on_chunk`` — ``distributed_counts`` with its ``chunk_rows``
+    sweep) and the backend exposes the sweep's chunk grid to the driver, so
+    a mesh mine checkpoints mid-level.  The signature names no mesh shape,
+    so a partial resumes on another mesh, and in the JAX package."""
+
+    def __init__(self, count_fn: Callable[..., np.ndarray],
+                 vocab: ItemVocab, n_rows: int, n_classes: int,
+                 nbytes: int = 0, *, n_chunks: int = 1,
+                 chunk_rows: Optional[int] = None):
+        self._count_fn = count_fn
+        self.vocab = vocab
+        self.n_rows = n_rows
+        self.n_classes = n_classes
+        self._nbytes = nbytes
+        self._n_chunks = int(n_chunks)
+        self.chunk_rows = chunk_rows
+
+    @property
+    def nbytes(self) -> int:
+        return self._nbytes
+
+    @property
+    def n_count_chunks(self) -> int:
+        return self._n_chunks
+
+    def chunk_signature(self) -> dict:
+        sig = {"backend": "distributed", "n_rows": self.n_rows}
+        if self._n_chunks > 1:
+            # chunked geometry: mid-level partials only transfer between
+            # identical chunk_rows sweeps
+            sig["chunk_rows"] = self.chunk_rows
+        return sig
+
+    def counts(self, masks, *, start_chunk=0, init=None, on_chunk=None):
+        if self._n_chunks == 1:
+            return self._single_chunk(self._count_fn, masks, start_chunk,
+                                      init, on_chunk)
+        k = int(masks.shape[0])
+        if k == 0:
+            return (np.zeros((0, self.n_classes), np.int32) if init is None
+                    else np.array(_host(init), np.int32))
+        return _host(self._count_fn(masks, start_chunk=start_chunk,
+                                    init=init, on_chunk=on_chunk))

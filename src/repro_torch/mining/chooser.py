@@ -38,10 +38,9 @@ characteristics instead of a fixed size threshold.
 Every engine is exact, so the chooser is a pure performance policy — the
 pins in ``tests/test_torch_chooser_gfp.py`` hold the port's verdicts to the
 JAX package's and assert identical mining results whichever backend it
-selects.  On one card ``auto`` never reaches ``distributed`` (it needs a
-mesh) or ``spilled`` (it needs an opt-in spill budget); constructing either
-raises ``NotImplementedError`` until the disk tier and the mesh runtime are
-ported (ROADMAP queue 1, item 4).
+selects.  ``distributed`` needs a mesh of more than one rank (a
+``torch.distributed`` ``DeviceMesh``, whose ``size()`` is a method, or
+anything with an int ``size``) and ``spilled`` an opt-in spill budget.
 """
 from __future__ import annotations
 
@@ -180,6 +179,15 @@ def choose_backend(
         min_depth=min_depth))
 
 
+def _mesh_size(mesh) -> int:
+    """Ranks in ``mesh``: ``DeviceMesh.size()`` is a method, a plain int
+    attribute elsewhere; no mesh is one device."""
+    if mesh is None:
+        return 1
+    size = getattr(mesh, "size", 1)
+    return int(size() if callable(size) else size)
+
+
 def _choose_backend(
     traits: DatasetTraits,
     *,
@@ -195,11 +203,11 @@ def _choose_backend(
 ) -> BackendChoice:
     stream_threshold_bytes, tiny_rows, min_depth = _resolved_thresholds(
         stream_threshold_bytes, tiny_rows, min_depth)
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
+    devices = _mesh_size(mesh)
+    if devices > 1:
         return BackendChoice(
             "distributed",
-            f"multi-device mesh ({getattr(mesh, 'size', 0)} devices): "
-            "shard the sweep", traits)
+            f"multi-device mesh ({devices} devices): shard the sweep", traits)
     # spill_threshold_bytes is opt-in (None = no disk tier configured): past
     # the host-RAM budget the rows cannot stay resident ANYWHERE, so disk
     # wins before the device-residency question is even asked
@@ -244,9 +252,11 @@ def backend_for_db(db, *, mesh=None, max_len: int = 0, use_kernel: bool = True,
                    name: Optional[str] = None, **thresholds):
     """Construct the chosen (or ``name``-forced) backend over ``db`` — a
     :class:`~repro_torch.mining.dense.DenseDB`, a
-    :class:`~repro_torch.mining.stream.StreamingDB`, or anything exposing
+    :class:`~repro_torch.mining.stream.StreamingDB`, a
+    :class:`~repro_torch.mining.spill.SpilledDB`, or anything exposing
     bits/weights/vocab/n_rows/n_classes.  Returns ``(backend, choice)``.
-    Every backend counts on the DB's device.
+    Every backend counts on the DB's device; ``spilled`` writes the DB into
+    ``default_spill_dir()`` unless it is a ``SpilledDB`` already.
 
     Engine imports stay function-level: the chooser is imported by the
     backends' ``traits()`` hook, so module-level engine imports would cycle.
@@ -259,10 +269,17 @@ def backend_for_db(db, *, mesh=None, max_len: int = 0, use_kernel: bool = True,
         choice = BackendChoice(name, "explicitly requested")
 
     device = _db_device(db)
-    if choice.name in ("distributed", "spilled"):
-        raise NotImplementedError(
-            f"the {choice.name!r} backend is not ported yet (ROADMAP queue 1, "
-            "item 4: disk tier and mesh runtime)")
+    if choice.name == "distributed":
+        from .distributed import DistributedMiner
+        miner = DistributedMiner(mesh, use_kernel=use_kernel, device=device)
+        return miner.backend(_host(db.bits), _host(db.weights),
+                             db.vocab), choice
+    if choice.name == "spilled":
+        from .spill import SpilledBackend, SpilledDB, default_spill_dir
+        sdb = db if isinstance(db, SpilledDB) else SpilledDB.spill(
+            db.vocab, _host(db.bits), _host(db.weights), int(db.n_rows),
+            int(db.n_classes), default_spill_dir(), device=device)
+        return SpilledBackend(sdb, use_kernel=use_kernel), choice
     if choice.name == "streaming":
         from .backend import StreamingBackend
         from .stream import StreamingDB

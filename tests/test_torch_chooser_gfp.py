@@ -228,10 +228,40 @@ def test_backend_for_db_constructs_choice_and_results_agree():
 
 
 @pytest.mark.parametrize("name", ["distributed", "spilled"])
-def test_backend_for_db_refuses_unported_engines(name):
-    db = tm.DenseDB.encode([[1, 2], [2, 3]], device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tm.backend_for_db(db, name=name)
+def test_backend_for_db_refuses_unported_engines(name, tmp_path, monkeypatch):
+    """No engine is refused any more: the mesh runtime (on a one-rank gloo
+    mesh) and the disk tier are built by name and mine what the dense
+    backend mines, as the JAX package's do."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rng = np.random.default_rng(4)
+    tx = _random_tx(rng, 300, 9, 0.4)
+    db, jdb = _dbs(tx)
+    want = tm.mine_frequent_backend(tm.DenseBackend(db), 40)
+    assert want == mine_frequent(tx, 40)
+    monkeypatch.setenv("REPRO_TORCH_SPILL_DIR", str(tmp_path / "spill"))
+    monkeypatch.setenv("REPRO_SPILL_DIR", str(tmp_path / "jax"))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=30))
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cpu")
+        be, choice = tm.backend_for_db(db, name=name, mesh=mesh)
+        assert choice.name == name
+        assert type(be).__name__ == {"distributed": "DistributedBackend",
+                                     "spilled": "SpilledBackend"}[name]
+        assert be.chunk_signature()["backend"] == name
+        assert tm.mine_frequent_backend(be, 40) == want
+    finally:
+        dist.destroy_process_group()
+    if name == "spilled":
+        assert be.db.directory == str(tmp_path / "spill")
+        jbe, _ = jm.backend_for_db(jdb, name=name)
+        assert jbe.chunk_signature() == be.chunk_signature()
 
 
 def test_auto_never_reaches_unported_engines_on_one_card():
