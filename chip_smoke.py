@@ -92,10 +92,45 @@ phase, and fail on the first phase that fails.
     on the (1, 1) NCCL mesh, equal to the uninterrupted mine.  Each rank's
     per-launch kernel time (the wrapper's CUDA events) and the all-reduce's
     time and bytes are printed.
+14. The count server, untuned: ``CountServer(tx, classes=y, n_classes=2)``
+    on the card over phase 5's 1,000,000 transactions (the build's encode,
+    dedup and upload seconds; a dense base of 969,130 rows; the chooser's
+    verdict; the serve block_k); every served count below held against
+    the plain version over the same resident tensors (all 1,770 pairs and
+    34,220 triples).  (1) Per-flush latency at batches of 1, 4, 16, 64 and
+    256 distinct single-query requests, 20 flushes each, cold (a fresh
+    cache: one K1 launch a flush, asserted) and warm (cache hits: no
+    launch), median and p99 wall ms.  (2) Ten cold flushes at batch 1 and
+    at 64 under ``torch.profiler``: the layout pass, the count kernel, the
+    host's share of the wall and the device's idle share of its span.  (3)
+    One flush of all 34,220 triples beside phase 3's level-3 K1 time.  (8)
+    Under a table pinned to ``mxu_f32``: cold flushes at batch 64 and of
+    all triples through K2.  (6) ``mine(1e-4, class_column=1)`` with
+    ``backend="store"`` and ``"auto"`` (the chooser's verdict printed) equal
+    to phase 11's rare-class mine.  (4) An append of 10,000 rows (seed 1):
+    a cold flush makes 2 launches (base + delta) and equals a fresh plain
+    count of all 1,010,000 rows (the rows packed again in numpy from the
+    generator's draws); ``compact()`` inline, with the base's D2H copy
+    alone.  (6) ``mine(0.01)``, an append of 10,000 rows (seed 2) with the
+    incremental refresh, equal to a fresh mine of the whole history.  (5)
+    A server over the first 200,000 rows with background compaction and
+    async flush: four client threads submit 256 single queries each while
+    8 appends of 2,000 rows land; every future equals the count at a
+    version between its submit and the last append; the flush latency
+    p50 / p99 / max and the compactions.  (7) Streamed and spilled bases
+    (``build/spill_serve/``) of those 200,000 rows plus a 2,000-row delta:
+    cold flushes at batch 64 and K = 1,770, exact, with the chunks plus one
+    launches.  (9) ``ShardedDB(n_shards=2)`` over a one-rank NCCL mesh (a
+    FileStore under ``build/mesh_serve/``) equal to the unsharded store
+    before and after an append that widens W to 4, then two gloo ranks
+    sharing the card on mesh (2, 1) (``chip_smoke._serve_rank``), each
+    checking its own counts and refusing ``async_flush``; per-flush wall
+    ms and the all-reduce's ms.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
-spilled path and on each rank of each mesh) and
+spilled path, on each rank of each mesh, and on the count server's path
+counted apart in ``launches_by_path``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -847,6 +882,624 @@ def _mesh_runtime(dev, ub, uw, vocab, geoms, dense, want_freq, min_count):
     finally:
         dist.destroy_process_group()
     return out
+
+
+def _bernoulli_rows(n, seed, n_items=60, p_x=0.125, p_y=0.01):
+    """``data.bernoulli_db(n, n_items, p_x, p_y, seed)``'s rows again, from
+    the same draws of the same generator: the (n, n_items) item matrix and
+    the classes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mat = rng.random((n, n_items)) < p_x
+    return mat, (rng.random(n) < p_y).astype(np.int64)
+
+
+def _pack(mat, y, vocab):
+    """Rows of an item matrix packed in numpy under ``vocab``'s columns,
+    with one-hot class weights, not deduplicated: a fresh encoding that
+    shares no code with the port's."""
+    import numpy as np
+    bits = np.zeros((mat.shape[0], vocab.n_words), np.uint32)
+    for c, item in enumerate(vocab.items):
+        if item < mat.shape[1]:
+            bits[:, c >> 5] |= mat[:, item].astype(np.uint32) << np.uint32(
+                c & 31)
+    w = np.zeros((mat.shape[0], 2), np.int32)
+    w[np.arange(mat.shape[0]), y] = 1
+    return bits, w
+
+
+def _plain_counts(dev, parts, masks):
+    """The plain version on the card over freshly packed rows (a list of
+    ``(bits, weights)`` parts, padded to the masks' width): (K, C) int64."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.itemset_count.ops import itemset_counts
+    tgt = torch.from_numpy(np.ascontiguousarray(masks)).to(dev)
+    out = np.zeros((masks.shape[0], 2), np.int64)
+    for bits, w in parts:
+        wide = np.zeros((bits.shape[0], masks.shape[1]), np.uint32)
+        wide[:, :bits.shape[1]] = bits
+        out += itemset_counts(torch.from_numpy(wide).to(dev), tgt,
+                              torch.from_numpy(w).to(dev),
+                              use_kernel=False).cpu().numpy()
+    return out
+
+
+def _quantiles(ms):
+    from repro_torch.obs import nearest_rank
+    s = sorted(ms)
+    return nearest_rank(s, 0.5), nearest_rank(s, 0.99), s[-1]
+
+
+def _flush_trace(trace_path, n_flushes, wall_ms):
+    """A ``torch.profiler`` trace of ``n_flushes`` flushes taking
+    ``wall_ms`` in all: per flush, the layout pass, the count kernel, the
+    other device work (copies, fills), and the shares of the wall in which
+    the device was busy and of the device's span in which it was idle."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    dev_spans, layout, count, other = [], 0.0, 0.0, 0.0
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        s, d = float(e["ts"]), float(e["dur"])
+        dev_spans.append((s, s + d))
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and "layout_kernel" in name:
+            layout += d
+        elif e.get("cat") == "kernel" and "count_kernel" in name:
+            count += d
+        else:
+            other += d
+    if not dev_spans:
+        return None
+    busy = _length(_union(dev_spans)) / 1e3
+    span = (max(e for _, e in dev_spans) - min(s for s, _ in dev_spans)) / 1e3
+    return dict(layout_ms=layout / 1e3 / n_flushes,
+                count_ms=count / 1e3 / n_flushes,
+                other_ms=other / 1e3 / n_flushes,
+                wall_ms=wall_ms / n_flushes,
+                host_share=1 - busy / wall_ms,
+                idle_share=1 - busy / span)
+
+
+def _serve_rank(rank, world, store, payload_path, out_dir):
+    """One of phase 14's two gloo ranks sharing the card: the same
+    ``ShardedDB`` on mesh (2, 1) as the other rank, the same appends, each
+    rank checking its own counts; its per-flush wall and all-reduce times,
+    and the refusal of ``async_flush`` over two ranks."""
+    import datetime
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline import autotune
+    from repro_torch.serve import CountServer, ShardedDB
+
+    autotune.set_active_table(None)
+    with open(payload_path, "rb") as f:
+        p = pickle.load(f)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(2, 1, device_type="cpu")
+        t = time.perf_counter()
+        sh = ShardedDB(p["tx"], classes=p["y"], n_classes=2, n_shards=2,
+                       mesh=mesh, device=p["device"])
+        out["build_s"] = time.perf_counter() - t
+        ops.KERNEL_LAUNCHES = 0
+        flush_ms = {}
+        for step, (batch, yb) in enumerate(zip(p["batches"], p["batch_y"])):
+            sh.append(batch, classes=yb)
+            for label, keys in p["keys"].items():
+                got = sh.counts(keys)         # places the rows: untimed
+                times = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    got = sh.counts(keys)
+                    times.append((time.perf_counter() - t) * 1e3)
+                if not np.array_equal(got, p["want"][step][label]):
+                    raise AssertionError(f"rank {rank}, mesh (2, 1), after "
+                                         f"append {step}, {label}: != the "
+                                         "unsharded store")
+                flush_ms[f"{label} after append {step}"] = \
+                    statistics.median(times)
+        out["flush_ms"] = flush_ms
+        out["launches"] = ops.KERNEL_LAUNCHES
+        out["rows_held"] = int(sh._mesh_resident[0].shape[0])
+        k_pad = max(len(k) for k in p["keys"].values())
+        block = torch.zeros((k_pad, 2), dtype=torch.int32)
+        out["allreduce_ms"] = _allreduce_ms(dist, block)
+        out["allreduce_bytes"] = block.numel() * 4
+        try:
+            CountServer(p["tx"][:100], classes=p["y"][:100], n_classes=2,
+                        shards=2, mesh=mesh, async_flush=True)
+            raise AssertionError("async_flush over two ranks was accepted")
+        except ValueError as e:
+            out["async_refused"] = str(e)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _count_server(dev, tx_rows, y, want_freq, k1_level3_ms):
+    """Phase 14: the count server at the main path's 1,000,000 rows (see
+    the module docstring).  Returns the launches by kernel."""
+    import datetime
+    import pickle
+    import shutil
+    import threading
+    from itertools import combinations
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.core.incremental import ceil_count
+    from repro_torch.data import bernoulli_db
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.kernels.itemset_count.ops import itemset_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.mining import encode_targets
+    from repro_torch.roofline import autotune, kernel_model
+    from repro_torch.serve import (CountCache, CountServer, ShardedDB,
+                                   versioned_mine_frequent)
+
+    autotune.set_active_table(None)
+    for key in ops.KERNEL_LAUNCHES_BY_ACCUM:
+        ops.KERNEL_LAUNCHES_BY_ACCUM[key] = 0
+    ops.KERNEL_LAUNCHES_INTO = 0
+    ops.KERNEL_LAUNCHES = 0
+    launches = {}
+
+    # ---- the store ----------------------------------------------------------
+    t = time.perf_counter()
+    srv = CountServer(tx_rows, classes=y, n_classes=2, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    st = srv.store
+    bs = st.build_seconds
+    print(f"   store: CountServer over {len(tx_rows)} rows in {build_s:.3f} "
+          f"s (encode {bs['encode']:.3f} s, dedup {bs['dedup']:.3f} s, "
+          f"residency choice + upload {bs['base']:.3f} s); resident "
+          f"{st.resident} on {st.device}, base_rows {st.base_rows}, W "
+          f"{st.vocab.n_words}, C 2; backend_choice "
+          f"{st.backend_choice.name} ({st.backend_choice.reason}); serve "
+          f"block_k {srv.batcher.block_k}", flush=True)
+    if st.resident != "dense" or (len(tx_rows) == MAIN["n"]
+                                  and st.base_rows != 969_130):
+        raise AssertionError(f"store: {st.resident} base of {st.base_rows} "
+                             "rows, expected dense and 969,130")
+    vocab = st.vocab
+    pairs = list(combinations(range(60), 2))
+    triples = list(combinations(range(60), 3))
+    pool = pairs + triples
+    index = {key: i for i, key in enumerate(pool)}
+    masks_all = encode_targets(pool, vocab)
+    t = time.perf_counter()
+    plain = itemset_counts(
+        st.base.bits, torch.from_numpy(masks_all).to(dev), st.base.weights,
+        use_kernel=False).cpu().numpy()
+    print(f"   the plain version over the resident tensors: all "
+          f"{len(pairs)} pairs and {len(triples)} triples in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    served = [0]
+
+    def check(out, keys_by_ticket, label, want=None):
+        for ticket, keys in keys_by_ticket.items():
+            rows = out[ticket]
+            ref = plain[[index[k] for k in keys]] if want is None else want
+            if not np.array_equal(rows, ref):
+                raise AssertionError(f"{label}: served counts != the plain "
+                                     "version")
+            served[0] += len(keys)
+
+    def flush(keys, label, singles=True, want=None):
+        """Submit ``keys`` (one request each, or one request of all) and
+        flush; returns (wall ms, store launches, answered blocks).  The
+        counts are held against ``plain`` (version 0), or against ``want``
+        for one request of all."""
+        tickets = ({srv.submit(f"c{i}", [k]): [k]
+                    for i, k in enumerate(keys)} if singles
+                   else {srv.submit("bulk", keys): list(keys)})
+        n0 = st.kernel_launches
+        t = time.perf_counter()
+        out = srv.flush()
+        ms = (time.perf_counter() - t) * 1e3
+        check(out, tickets, label, want)
+        return ms, st.kernel_launches - n0, out
+
+    order = np.random.default_rng(14).permutation(len(pool))
+
+    # ---- 1. per-flush latency by batch size, cold and warm ------------------
+    lat = {}
+    for b in (1, 4, 16, 64, 256):
+        srv.cache = CountCache()
+        flush([pool[i] for i in order[-b:]], f"warm-up b={b}")
+        groups = [[pool[i] for i in order[j * b:(j + 1) * b]]
+                  for j in range(20)]
+        cold, warm = [], []
+        for keys in groups:
+            ms, n, _ = flush(keys, f"cold b={b}")
+            if n != 1:
+                raise AssertionError(f"cold flush of {b}: {n} launches, "
+                                     "expected 1")
+            cold.append(ms)
+        for keys in groups:
+            ms, n, _ = flush(keys, f"warm b={b}")
+            if n != 0:
+                raise AssertionError(f"warm flush of {b}: {n} launches")
+            warm.append(ms)
+        lat[b] = (_quantiles(cold), _quantiles(warm))
+        (c50, c99, _), (w50, w99, _) = lat[b]
+        print(f"   batch {b:>3}: cold median {c50:.3f} ms, p99 {c99:.3f} ms "
+              f"(1 launch each); warm median {w50:.3f} ms, p99 {w99:.3f} ms "
+              f"(cache hits, 0 launches); 20 flushes each", flush=True)
+
+    # ---- 2. where a flush's time goes ---------------------------------------
+    trace_dir = ROOT / "build" / "traces"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    split = {}
+    nxt = 20 * 256
+    for b in (1, 64):
+        srv.cache = CountCache()
+        groups = [[pool[i] for i in order[nxt + j * b:nxt + (j + 1) * b]]
+                  for j in range(10)]
+        nxt += 10 * b
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for keys in groups:
+                flush(keys, f"profiled b={b}")
+            wall = (time.perf_counter() - t) * 1e3
+        path = trace_dir / f"serve_flush_b{b}.json"
+        prof.export_chrome_trace(str(path))
+        split[b] = _flush_trace(path, len(groups), wall)
+        if split[b] is None:
+            print(f"   batch {b}: the profiler recorded no device events: "
+                  "the split is not measured")
+            continue
+        s = split[b]
+        print(f"   batch {b:>2}, profiled (10 cold flushes): per flush "
+              f"{s['wall_ms']:.3f} ms wall, layout pass {s['layout_ms']:.4f}"
+              f" ms, count kernel {s['count_ms']:.4f} ms, other device work "
+              f"{s['other_ms']:.4f} ms; layout pass "
+              f"{s['layout_ms'] / (s['layout_ms'] + s['count_ms']):.1%} of "
+              f"the kernels' time and {s['layout_ms'] / s['wall_ms']:.1%} of "
+              f"the flush; host share (device not busy) "
+              f"{s['host_share']:.1%} of the wall, device idle "
+              f"{s['idle_share']:.1%} of its span", flush=True)
+
+    # ---- 3. one flush of all 34,220 triples --------------------------------
+    srv.cache = CountCache()
+    ms3, n, _ = flush(triples, "all triples", singles=False)
+    if n != 1:
+        raise AssertionError(f"all-triples flush: {n} launches")
+    print(f"   one flush of all {len(triples)} triples (one request): "
+          f"{ms3:.3f} ms wall, 1 launch; phase 3's K1 at level 3 "
+          f"{k1_level3_ms:.4f} ms", flush=True)
+
+    # ---- 8. under the table pinned to mxu_f32 ------------------------------
+    kind = autotune.device_kind()
+    pinned = {kernel_model.geometry_bucket(st.base_rows, 1 << e,
+                                           vocab.n_words, 2): {
+        "block_k": 128, "block_n": 512, "accum": "mxu_f32", "chunk_rows": 0,
+        "us": 1.0} for e in range(3, 21)}
+    autotune.set_active_table(autotune.table_from_dict(
+        {"schema": 1, "device_kind": kind, "entries": pinned}, "<pinned>"))
+    mxu0 = ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"]
+    srv.cache = CountCache()
+    ms64, n64, _ = flush([pool[i] for i in order[:64]], "mxu_f32 b=64")
+    msk, nk, _ = flush(triples, "mxu_f32 all triples", singles=False)
+    grew = ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"] - mxu0
+    autotune.set_active_table(None)
+    if (n64, nk, grew) != (1, 1, 2):
+        raise AssertionError(f"pinned mxu_f32 flushes: {n64} + {nk} launches,"
+                             f" K2 launches grew by {grew}")
+    print(f"   table pinned to mxu_f32: cold flush of 64 {ms64:.3f} ms, of "
+          f"all {len(triples)} triples {msk:.3f} ms; K2 launches +{grew}; "
+          f"exact", flush=True)
+    print(f"   {served[0]} served counts == the plain version over the "
+          f"resident tensors", flush=True)
+
+    # ---- 6a. mining at version 0 -------------------------------------------
+    t = time.perf_counter()
+    got = srv.mine(1e-4, class_column=1, backend="store")
+    t_store = time.perf_counter() - t
+    if got != want_freq:
+        raise AssertionError("mine(1e-4, class_column=1, backend='store') "
+                             "!= phase 11's dense mine")
+    t = time.perf_counter()
+    got = srv.mine(1e-4, class_column=1, backend="auto")
+    t_auto = time.perf_counter() - t
+    verdict = srv.last_backend_choice
+    if got != want_freq:
+        raise AssertionError("mine(backend='auto') != phase 11's dense mine")
+    print(f"   mine(1e-4, rare class): store {t_store:.3f} s, auto -> "
+          f"{verdict.name} ({verdict.reason}) {t_auto:.3f} s; both == "
+          f"phase 11's dense mine ({len(got)} itemsets)", flush=True)
+
+    # ---- 4. appends and compaction -----------------------------------------
+    tx_a, y_a = bernoulli_db(10_000, 60, 0.125, 0.01, seed=1)
+    t = time.perf_counter()
+    v = srv.append(tx_a, classes=y_a)
+    t_append = time.perf_counter() - t
+    delta = st.delta_rows
+    if v != 1 or delta == 0:
+        raise AssertionError(f"append: version {v}, delta {delta}")
+    main_rows = _bernoulli_rows(len(tx_rows), 0)
+    fresh = [_pack(*main_rows, vocab), _pack(*_bernoulli_rows(10_000, 1),
+                                             vocab)]
+    keys_a = [pool[i] for i in order[:512]]
+    want_a = _plain_counts(dev, fresh, encode_targets(keys_a, vocab))
+    ms_a, n, _ = flush(keys_a[:256], "after the append", singles=False,
+                       want=want_a[:256])
+    if n != 2:
+        raise AssertionError(f"flush after the append: {n} launches "
+                             "(expected 2), or != a fresh plain count of all "
+                             f"{len(tx_rows) + 10_000} rows")
+    t = time.perf_counter()
+    st.base.bits.cpu()
+    st.base.weights.cpu()
+    d2h_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    st.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t
+    _, n, _ = flush(keys_a[256:], "after compact()", singles=False,
+                    want=want_a[256:])
+    if n != 1 or st.delta_rows:
+        raise AssertionError(f"flush after compact(): {n} launches")
+    print(f"   append of 10,000 rows (seed 1): {t_append:.3f} s, version 1, "
+          f"delta {delta} unique rows -> cold flush of 256 {ms_a:.3f} ms, 2 "
+          f"launches (base + delta), == a fresh plain count of all "
+          f"{len(tx_rows) + 10_000} rows; compact() inline {t_compact:.3f} "
+          f"s (the base's D2H copy alone {d2h_ms:.3f} ms), base_rows "
+          f"{st.base_rows}, then 1 launch a flush, exact", flush=True)
+
+    # ---- 6b. incremental maintenance ---------------------------------------
+    theta = 0.01
+    t = time.perf_counter()
+    srv.mine(theta, backend="store")
+    t_mine = time.perf_counter() - t
+    tx_b, y_b = bernoulli_db(10_000, 60, 0.125, 0.01, seed=2)
+    t = time.perf_counter()
+    srv.append(tx_b, classes=y_b)
+    t_refresh = time.perf_counter() - t
+    t = time.perf_counter()
+    fresh_mine = versioned_mine_frequent(
+        st, ceil_count(theta * st.n_rows))
+    t_fresh = time.perf_counter() - t
+    if srv.frequent != fresh_mine or not fresh_mine:
+        raise AssertionError("frequent set after the incremental refresh != "
+                             "a fresh mine of the whole history")
+    print(f"   mine({theta}) of {st.n_rows - 10_000} rows {t_mine:.3f} s; "
+          f"append of 10,000 rows (seed 2) with the incremental refresh "
+          f"{t_refresh:.3f} s: frequent ({len(fresh_mine)} itemsets) == a "
+          f"fresh mine of all {st.n_rows} rows ({t_fresh:.3f} s)",
+          flush=True)
+    del srv, st, plain, fresh
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 5. background compaction with async flush (200,000 rows) ----------
+    n5 = 200_000
+    tx5, y5 = tx_rows[:n5], y[:n5]
+    t = time.perf_counter()
+    asrv = CountServer(tx5, classes=y5, n_classes=2, device=dev,
+                       background_compaction=True, async_flush=True,
+                       max_delay_ms=5, min_batch=8, merge_ratio=0.005)
+    print(f"   async server over {len(tx5)} rows (background compaction, "
+          f"max_delay_ms 5, min_batch 8, merge_ratio 0.005): built in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    avocab = asrv.store.vocab
+    batches = [bernoulli_db(2_000, 60, 0.125, 0.01, seed=100 + i)
+               for i in range(8)]
+    keys5 = [pool[i] for i in order[:1024]]
+    futs = []
+    lock = threading.Lock()
+
+    def client(c):
+        for key in keys5[c * 256:(c + 1) * 256]:
+            v0 = asrv.store.version
+            fut = asrv.submit_async(f"client{c}", [key])
+            with lock:
+                futs.append((key, v0, fut))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for tx_i, y_i in batches:
+        asrv.append(tx_i, classes=y_i)
+    for th in threads:
+        th.join(120)
+    asrv.close()                   # drains the flusher and the compactor
+    t5 = time.perf_counter() - t
+    # the exact counts of every key at every version 0..8
+    m5 = encode_targets(keys5, avocab)
+    head = (main_rows[0][:n5], main_rows[1][:n5])
+    at_version = [_plain_counts(dev, [_pack(*head, avocab)], m5)]
+    for i in range(8):
+        at_version.append(at_version[-1] + _plain_counts(
+            dev, [_pack(*_bernoulli_rows(2_000, 100 + i), avocab)], m5))
+    row = {key: i for i, key in enumerate(keys5)}
+    for key, v0, fut in futs:
+        got = fut.result(timeout=1)[0]
+        if not any(np.array_equal(got, at_version[v][row[key]])
+                   for v in range(v0, 9)):
+            raise AssertionError(f"async future for {key}: {got} is the "
+                                 "count at no version from its submit on")
+    ast = asrv.stats()
+    p50, p99, pmax = _quantiles(list(asrv._flusher.latencies_ms))
+    print(f"   4 client threads x 256 single queries while 8 appends of "
+          f"2,000 rows landed, {t5:.3f} s: all {len(futs)} futures exact at "
+          f"a version between their submit and the last append; "
+          f"{ast['async']['flushes']} flushes (by trigger "
+          f"{ast['async']['by_trigger']}), flush latency (queue wait of the "
+          f"oldest request) p50 {p50:.3f} ms, p99 {p99:.3f} ms, max "
+          f"{pmax:.3f} ms; {ast['store']['compactions']} background "
+          f"compactions, version {ast['store']['version']}", flush=True)
+    del asrv
+
+    # ---- 7. the other residencies (200,000 rows) ---------------------------
+    tx_d7, y_d7 = bernoulli_db(2_000, 60, 0.125, 0.01, seed=200)
+    spill_dir = ROOT / "build" / "spill_serve"
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    for label, kw in (("streaming", {}),
+                      ("spilled", dict(spill_dir=str(spill_dir),
+                                       spill_threshold_bytes=0))):
+        t = time.perf_counter()
+        s7 = CountServer(tx5, classes=y5, n_classes=2, device=dev,
+                         chunk_rows=STREAM_CHUNK_ROWS, merge_ratio=1e9, **kw)
+        build7 = time.perf_counter() - t
+        s7.append(tx_d7, classes=y_d7)
+        if s7.store.resident != label:
+            raise AssertionError(f"{label} store is {s7.store.resident}")
+        v7 = s7.store.vocab
+        fresh7 = [_pack(*head, v7), _pack(*_bernoulli_rows(2_000, 200), v7)]
+        chunks = s7.store.base.n_chunks
+        for name, keys, singles in (("batch 64", keys5[:64], True),
+                                    (f"K = {len(pairs)}", pairs, False)):
+            want7 = _plain_counts(dev, fresh7, encode_targets(keys, v7))
+            n0, i0 = s7.store.kernel_launches, ops.KERNEL_LAUNCHES_INTO
+            tickets = ({s7.submit(f"c{i}", [k]): i
+                        for i, k in enumerate(keys)} if singles
+                       else {s7.submit("bulk", keys): None})
+            t = time.perf_counter()
+            out = s7.flush()
+            ms7 = (time.perf_counter() - t) * 1e3
+            n, into = s7.store.kernel_launches - n0, \
+                ops.KERNEL_LAUNCHES_INTO - i0
+            got = (np.concatenate([out[tk] for tk in tickets]) if singles
+                   else out[next(iter(tickets))])
+            if n != chunks + 1 or into != chunks or \
+                    not np.array_equal(got, want7):
+                raise AssertionError(f"{label} {name}: {n} launches ({into} "
+                                     f"K3), expected {chunks} + 1, or != a "
+                                     "fresh plain count")
+            print(f"   {label} base ({chunks} chunks of {STREAM_CHUNK_ROWS}, "
+                  f"built in {build7:.3f} s) + a 2,000-row delta: cold flush "
+                  f"at {name} {ms7:.3f} ms, {n} launches ({into} K3 + 1 "
+                  f"delta), exact", flush=True)
+        if label == "streaming":
+            unsharded = s7         # phase (9)'s reference
+    shutil.rmtree(spill_dir, ignore_errors=True)
+
+    # ---- 9. the mesh --------------------------------------------------------
+    mesh_dir = ROOT / "build" / "mesh_serve"
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    mesh_dir.mkdir(parents=True)
+    rng9 = np.random.default_rng(9)
+    widen = [sorted(set(rng9.choice(100, size=8, replace=False).tolist()))
+             for _ in range(1_000)]               # items up to 99: W 2 -> 4
+    widen_y = (rng9.random(1_000) < 0.01).astype(int).tolist()
+    mesh_keys = {"batch 64": keys5[:64],
+                 f"K = {len(pairs)}": pairs,
+                 "new items": [(60,), (0, 61), (99,), (3, 70, 98)]}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(mesh_dir / "nccl.store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        t = time.perf_counter()
+        sh = ShardedDB(tx5, classes=y5, n_classes=2, n_shards=2, mesh=mesh,
+                       device=dev)
+        build9 = time.perf_counter() - t
+        want_mesh = []
+        flush_ms = {}
+        for step, (batch, yb) in enumerate(((tx_d7, y_d7),
+                                            (widen, widen_y))):
+            sh.append(batch, classes=yb)
+            if step == 1:
+                unsharded.append(batch, classes=yb)
+            want_mesh.append({})
+            for label, keys in mesh_keys.items():
+                want = unsharded.store.counts(keys)
+                got = sh.counts(keys)
+                times = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    got = sh.counts(keys)
+                    times.append((time.perf_counter() - t) * 1e3)
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"(1, 1) NCCL ShardedDB, after "
+                                         f"append {step}, {label}: != the "
+                                         "unsharded store")
+                want_mesh[-1][label] = want
+                flush_ms[f"{label} after append {step}"] = \
+                    statistics.median(times)
+        if sh.vocab.n_words != 4 or sh.stats()["mesh"] != {"data": 1}:
+            raise AssertionError(f"(1, 1) mesh: W {sh.vocab.n_words}, stats "
+                                 f"{sh.stats()['mesh']}")
+        block = torch.zeros((len(pairs), 2), dtype=torch.int32, device=dev)
+        nccl_ms = _allreduce_ms(dist, block)
+        print(f"   (a) one NCCL rank, mesh (1, 1): ShardedDB(n_shards=2) "
+              f"over {len(tx5)} rows built in {build9:.3f} s == the unsharded "
+              f"store before and after an append that widens W to 4; "
+              f"per-flush wall ms (median of 5) {_fmt_ms(flush_ms)}; "
+              f"all-reduce of {block.numel() * 4} bytes {nccl_ms:.4f} ms",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    payload = mesh_dir / "payload.pkl"
+    with open(payload, "wb") as f:
+        pickle.dump(dict(tx=tx5, y=list(map(int, y5)),
+                         batches=[tx_d7, widen],
+                         batch_y=[list(map(int, y_d7)), widen_y],
+                         keys=mesh_keys, want=want_mesh, device=str(dev)),
+                    f)
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=_serve_rank, daemon=True,
+                         args=(r, 2, str(mesh_dir / "gloo.store"),
+                               str(payload), str(mesh_dir)))
+             for r in range(2)]
+    t = time.perf_counter()
+    for q in procs:
+        q.start()
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        for q in procs:
+            q.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for q in procs:
+            if q.is_alive():
+                q.kill()
+                q.join(10)
+    codes = [q.exitcode for q in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"two-rank gloo serving run: exit codes {codes}")
+    ranks = [json.loads((mesh_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    print(f"   (b) two gloo ranks sharing the card, mesh (2, 1), "
+          f"{time.perf_counter() - t:.3f} s with the start-up: each rank's "
+          f"ShardedDB == the unsharded store after both appends; "
+          f"async_flush refused on both")
+    for rk in ranks:
+        print(f"     rank {rk['rank']}: holds {rk['rows_held']} rows, built "
+              f"in {rk['build_s']:.3f} s, {rk['launches']} launches; "
+              f"per-flush wall ms {_fmt_ms(rk['flush_ms'])}; all-reduce of "
+              f"{rk['allreduce_bytes']} bytes (host copy) "
+              f"{rk['allreduce_ms']:.4f} ms", flush=True)
+    launches.update(
+        k1=ops.KERNEL_LAUNCHES_BY_ACCUM["vpu_int32"] - ops.KERNEL_LAUNCHES_INTO,
+        k2=ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"],
+        k3=ops.KERNEL_LAUNCHES_INTO,
+        per_rank=[rk["launches"] for rk in ranks])
+    return launches
 
 
 def _fmt_ms(d):
@@ -1630,13 +2283,22 @@ def main() -> int:
                              want_freq, min_count)
     _done(t0)
 
+    # ---- 14. the count server ------------------------------------------------
+    t0 = _phase("14. count server at 1,000,000 rows (untuned)")
+    serve = _count_server(dev, tx_rows, y, want_freq, per_launch[1]["ms"])
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
         "route": "cuda",
         "source": "src/repro_torch/kernels/itemset_count/csrc/itemset_count.cu",
         "replaces": "src/repro/kernels/itemset_count/kernel.py:32",
-        "launches": dense_launches,
+        # the main path's run (phase 5) and the count server's (phase 14),
+        # each read with the counts set to 0 just before it
+        "launches": dense_launches + serve["k1"],
+        "launches_by_path": {"main path (phase 5)": dense_launches,
+                             "count server (phase 14)": serve["k1"]},
         "max_abs_err": max_err,
         # the main path's work: one launch at each of its three geometries
         "ms": sum(p["ms"] for p in per_launch),
@@ -1647,8 +2309,10 @@ def main() -> int:
         "prep_ms": sum(p["prep_ms"] for p in per_launch),
         "horizontal_bound_ms": sum(p["horizontal_bound_ms"]
                                    for p in per_launch),
-        # phase 13: the mesh mine's launches on each rank of each mesh
-        "launches_per_rank": mesh_run["per_rank"],
+        # phase 13: the mesh mine's launches on each rank of each mesh;
+        # phase 14: the serving ranks' on mesh (2, 1)
+        "launches_per_rank": dict(mesh_run["per_rank"], **{
+            "(2, 1) gloo serving": serve["per_rank"]}),
         "per_launch": per_launch,
     }, {
         "name": "itemset_count_mxu",
@@ -1657,7 +2321,11 @@ def main() -> int:
                   "itemset_count_mxu.cu",
         "replaces": "src/repro/kernels/itemset_count/kernel.py:53",
         # the tuned main path under the table pinned to mxu_f32 (phase 10)
-        "launches": mxu_routes["mxu_f32"],
+        # and the count server's flushes under it (phase 14)
+        "launches": mxu_routes["mxu_f32"] + serve["k2"],
+        "launches_by_path": {"main path, pinned mxu_f32 (phase 10)":
+                             mxu_routes["mxu_f32"],
+                             "count server (phase 14)": serve["k2"]},
         "max_abs_err": mxu_err,
         "ms": sum(p["ms"] for p in per_launch_mxu),
         "plain_ms": sum(p["plain_ms"] for p in per_launch_mxu),
@@ -1682,8 +2350,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/itemset_count/csrc/"
                   "itemset_count.cu (accumulate = 1)",
         "replaces": "src/repro/kernels/itemset_count/ops.py:138",
-        # the streamed main path (phase 5): 8 chunks a level
-        "launches": into_launches,
+        # the streamed main path (phase 5): 8 chunks a level; the count
+        # server's streamed and spilled bases (phase 14)
+        "launches": into_launches + serve["k3"],
+        "launches_by_path": {"streamed main path (phase 5)": into_launches,
+                             "count server (phase 14)": serve["k3"]},
         "max_abs_err": max_err,
         # the 8-chunk sweeps at the three geometries: kernels in the trace
         "ms": (sum(p["k3_kernels_ms"] for p in per_launch)

@@ -39,9 +39,9 @@ per distinct tail item (the empty mask, if present, is its own leading
 chunk), in deterministic ascending-rank order.  ``chunk_signature`` /
 ``mine_signature`` are wired so the unified driver's ``MiningCheckpoint``
 kill/resume (``mining/driver.py``) works unchanged: a killed mine resumes
-mid-FLUSH, skipping every conditional block already counted.  (The JAX
-package's ``from_store``, which builds the backend from a serving store,
-arrives with serving.)
+mid-FLUSH, skipping every conditional block already counted.
+``from_store`` builds the backend from a serving store's composed rows
+(``CountServer.mine(backend="gfp"|"auto")``).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ from .._device import DeviceLike, resolve_device
 from ..kernels.itemset_count import itemset_counts
 from ..obs import REGISTRY, TRACER
 from .backend import CountBackend
-from .encode import ItemVocab, dedup_rows, encode_targets
+from .encode import ItemVocab, dedup_rows, encode_targets, pad_words
 from .stream import _db_device, _host
 
 Item = Hashable
@@ -141,6 +141,28 @@ class GFPBackend(CountBackend):
         self._setup(vocab, _host(bits), _host(weights),
                     int(n_rows), int(n_classes), **kw)
         return self
+
+    @classmethod
+    def from_store(cls, store, **kw) -> "GFPBackend":
+        """Materialize the hybrid backend from a serving ``VersionedDB``:
+        base + delta rows at the current vocab width, re-deduped — the same
+        composed history the store's own sweep counts (a D2H copy of a dense
+        base, every segment of a spilled one).  Kernel-sized blocks count on
+        the store's device unless ``device=`` says otherwise.  The
+        ``mine_signature`` pins the store ``version``, so a checkpoint
+        resumed after an ``append`` is discarded wholesale."""
+        w_now = store.vocab.n_words
+        bits = pad_words(_host(store.base.bits), w_now)
+        wts = _host(store.base.weights)
+        if store._delta_bits is not None:
+            bits = np.concatenate([bits, pad_words(store._delta_bits, w_now)])
+            wts = np.concatenate([wts, store._delta_weights])
+        if bits.shape[0]:
+            bits, wts = dedup_rows(bits, wts)
+        kw.setdefault("device", store.device)
+        return cls.from_arrays(
+            store.vocab, bits, wts, store.n_rows, store.n_classes,
+            mine_sig={"engine": "gfp", "version": store.version}, **kw)
 
     def _setup(self, vocab, bits, weights, n_rows, n_classes, *,
                use_kernel=True, host_rows=None, guide=True, mine_sig=None,

@@ -261,7 +261,7 @@ def resolve_serve_block_k(store) -> int:
     """Serve-path block_k for a count store (its resident rows, vocab width
     and classes): the bucket's padding-aware ``serve_block_k``, looked up at
     the nominal K :data:`TABLE_LOOKUP_BLOCK_K`; the default block otherwise.
-    Nothing calls it until serving is ported."""
+    ``serve.service.CountServer`` pads its micro-batches to it."""
     try:
         n = int(getattr(store, "base_rows", 0) or getattr(store, "n_rows", 0))
         w = int(store.vocab.n_words)

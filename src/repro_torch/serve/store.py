@@ -1,0 +1,801 @@
+"""Versioned resident encoded DB — the serving-side state of the count server.
+
+The paper frames multitude-targeted mining as answering "the count of a given
+large list of itemsets" — a query workload.  ``VersionedDB`` keeps one encoded
+bitmap RESIDENT between queries (the serving analogue of the encoded-DB
+technique of Danessh et al. 2010) instead of re-encoding per call:
+
+  * the **base** segment is a device ``DenseDB``, host ``StreamingDB``, or
+    disk ``SpilledDB`` (``mining/spill.py``: mmap segment files + async
+    prefetch), selected by encoded size (same threshold discipline as the
+    mining stack; the spill tier needs a configured ``spill_dir`` and engages
+    past ``spill_threshold_bytes`` of host RAM);
+  * ``append(transactions)`` encodes a new batch under a TAIL-EXTENDED vocab
+    (existing bit columns never move, so resident rows stay valid without
+    re-encoding), dedups it against the current tail **delta** segment, and
+    bumps the monotonically increasing ``version``;
+  * the delta is folded into the base (full re-dedup + residency reselection)
+    once it grows past ``merge_ratio`` of the base AND the ``min_compact_rows``
+    floor (a cold store must not pay a full rebuild per tiny append) — until
+    then every counting sweep COMPOSES base + delta: counts are int32 sums, so
+    the composition is bit-identical to a fresh encode of the concatenated
+    history.  With ``background_compaction=True`` the fold runs on an
+    :class:`~repro_torch.serve.compactor.AsyncCompactor` thread (snapshot
+    under ``_store_lock``, build off-lock, epoch-checked commit), so
+    ``append`` returns without paying it;
+  * ``counts`` / ``counts_masks`` answer a (K, W) target block with (K, C)
+    per-class counts, exact at the current version.
+
+``version`` is the cache key half of the serving cache (``serve.cache``): any
+append invalidates by construction, and pure compaction does NOT bump the
+version because it cannot change any count.
+
+The device: every base, the delta's mirror and every count run on the
+store's ``device`` (the card unless the caller passes ``"cpu"``), pinned to
+a card index at construction so that the compactor and flusher threads count
+on the same card as the caller.  A dense base and the delta mirror are
+tensors there; a flush copies its (K, C) block back to the host explicitly,
+and a compaction copies the whole base back (a D2H copy of a dense base, a
+read of every segment of a spilled one).  The spill root, when none is
+given, is ``$REPRO_TORCH_SPILL_DIR`` (the JAX package reads
+``$REPRO_SPILL_DIR``).
+
+``serve.shard.ShardedDB`` scales this store past one device: row-partitioned
+``VersionedDB`` shards behind one logical version, counts all-reduced — the
+same additivity argument that makes the base+delta composition below exact.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Hashable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..kernels.itemset_count import itemset_counts
+from ..mining.backend import CountBackend
+from ..obs import REGISTRY, TRACER
+from ..mining.dense import DenseDB
+from ..mining.encode import (ItemVocab, class_weights, dedup_rows,
+                             encode_bitmap, extend_vocab, pad_words)
+from ..mining.spill import (DEFAULT_SPILL_THRESHOLD_BYTES, SpilledDB,
+                            spilled_counts)
+from ..mining.stream import StreamingDB, _host, streaming_counts
+from .compactor import AsyncCompactor
+
+Item = Hashable
+
+# Auto-compaction floor: below this many delta rows an append never triggers
+# the fold, whatever merge_ratio says — a cold/tiny base would otherwise pay
+# a full re-dedup + residency rebuild on EVERY append (bootstrap thrash).
+# Explicit compact() calls ignore the floor.
+DEFAULT_MIN_COMPACT_ROWS = 1024
+
+_M_APPENDS = REGISTRY.counter("store_appends_total")
+_M_APPEND_ROWS = REGISTRY.counter("store_appended_rows_total")
+_M_COMPACTIONS = REGISTRY.counter("store_compactions_total")
+_M_FAILED_COMPACTIONS = REGISTRY.counter("store_failed_compactions_total")
+_H_APPEND_MS = REGISTRY.histogram("store_append_ms")
+
+
+def check_class_labels(classes: Optional[Sequence[int]],
+                       n_classes: Optional[int]) -> int:
+    """Validate class labels BEFORE any store state is touched; returns the
+    resolved ``n_classes``.
+
+    A negative label (or a label ≥ an explicitly passed ``n_classes``) must
+    raise the documented no-trace ``ValueError`` here, at the store boundary —
+    not deep inside ``class_weights`` after vocab/total bookkeeping has begun,
+    and never by scattering out of bounds or silently truncating a
+    non-integral label."""
+    if n_classes is not None and n_classes <= 0:
+        raise ValueError(f"n_classes must be positive, got {n_classes}")
+    if classes is not None and len(classes):
+        y = np.asarray(classes)
+        yi = y.astype(np.int64)
+        if not np.array_equal(yi, y):
+            raise ValueError("class labels must be integers")
+        lo, hi = int(yi.min()), int(yi.max())
+        if lo < 0:
+            raise ValueError(f"negative class label {lo}")
+        if n_classes is None:
+            n_classes = hi + 1
+        elif hi >= n_classes:
+            raise ValueError(
+                f"class label {hi} out of range for n_classes={n_classes}")
+    return n_classes or 1
+
+
+def store_device(device: DeviceLike = None) -> torch.device:
+    """``resolve_device`` with a card index: ``"cuda"`` becomes the caller's
+    current card, so threads that count for the store (which start on card
+    0) reach the same one."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+class VersionedDB:
+    """Resident encoded bitmap + vocab with versioned incremental appends,
+    counting on ``device`` (default: the card)."""
+
+    def __init__(
+        self,
+        transactions: Sequence[Sequence[Item]] = (),
+        classes: Optional[Sequence[int]] = None,
+        n_classes: Optional[int] = None,
+        vocab: Optional[ItemVocab] = None,
+        *,
+        use_kernel: bool = True,
+        streaming: Optional[bool] = None,
+        chunk_rows: Optional[int] = None,
+        stream_threshold_bytes: Optional[int] = None,
+        merge_ratio: float = 0.25,
+        min_compact_rows: Optional[int] = None,
+        spill: Optional[bool] = None,
+        spill_dir: Optional[str] = None,
+        spill_threshold_bytes: Optional[int] = None,
+        background_compaction: bool = False,
+        device: DeviceLike = None,
+    ):
+        self.device = store_device(device)
+        self.n_classes = check_class_labels(classes, n_classes)
+        self.use_kernel = use_kernel
+        self.chunk_rows = chunk_rows
+        self.merge_ratio = merge_ratio
+        self.min_compact_rows = (DEFAULT_MIN_COMPACT_ROWS
+                                 if min_compact_rows is None
+                                 else int(min_compact_rows))
+        self._streaming = streaming
+        self._stream_threshold = stream_threshold_bytes
+        # disk tier: spill=None engages past spill_threshold_bytes when a
+        # directory is configured; True forces it; False disables it
+        self._spill = spill
+        self._spill_dir = (spill_dir if spill_dir is not None
+                           else os.environ.get("REPRO_TORCH_SPILL_DIR"))
+        self._spill_threshold = spill_threshold_bytes
+        self._spill_gen = 0
+        # one re-entrant lock over base/delta/counter state: cheap when
+        # uncontended, required once the background compactor can race an
+        # append or a composed sweep
+        self._store_lock = threading.RLock()
+        self.version = 0
+        self.n_rows = 0
+        self.kernel_launches = 0
+        self.n_appends = 0
+        self.n_compactions = 0
+        self.n_failed_compactions = 0
+        self.last_compaction_error: Optional[str] = None
+        self._delta_bits: Optional[np.ndarray] = None   # (D, W) uint32, host
+        self._delta_weights: Optional[np.ndarray] = None  # (D, C) int32
+        self._delta_device = None   # (bits, weights) tensors on device, lazy
+        self._class_totals = np.zeros(self.n_classes, np.int64)
+        # the adaptive chooser's residency decision for the CURRENT base
+        # (None when residency was explicitly forced by the caller)
+        self.backend_choice = None
+
+        transactions = [list(t) for t in transactions]
+        t0 = time.perf_counter()
+        self.vocab = vocab if vocab is not None else \
+            ItemVocab.from_transactions(transactions)
+        t_vocab = time.perf_counter() - t0
+        timings = {}
+        ub, uw = self._encode_batch(transactions, classes, timings=timings)
+        self._class_totals = self._guard_totals(
+            self._class_totals + uw.sum(axis=0, dtype=np.int64))
+        self.n_rows = len(transactions)
+        t0 = time.perf_counter()
+        self.base = self._make_base(ub, uw)
+        # seconds of the construction's steps: the vocab and the bitmap
+        # (encode), the row dedup, and the base (the residency choice and
+        # the upload of a dense base, the spill of a spilled one)
+        self.build_seconds = {"encode": t_vocab + timings["encode"],
+                              "dedup": timings["dedup"],
+                              "base": time.perf_counter() - t0}
+        self._compactor: Optional[AsyncCompactor] = (
+            AsyncCompactor(self) if background_compaction else None)
+
+    def close(self) -> None:
+        """Drain and stop the background compactor (if any).  The store
+        stays fully usable afterwards (compaction reverts to inline)."""
+        if self._compactor is not None:
+            self._compactor.close()
+            self._compactor = None
+
+    @staticmethod
+    def _guard_totals(totals: np.ndarray) -> np.ndarray:
+        # largest possible count = per-class weight-column total; the int32
+        # accumulator must hold it (construction AND every append)
+        if np.any(totals > np.iinfo(np.int32).max):
+            raise OverflowError(
+                "per-class row totals would exceed int32; served counts "
+                "could wrap — shard the store instead")
+        return totals
+
+    # -- encode ---------------------------------------------------------------
+    def _encode_batch(self, transactions, classes, vocab=None, timings=None):
+        if classes is None or len(transactions) == 0:
+            if self.n_classes != 1 and len(transactions):
+                # ones in EVERY class column would count each row per class
+                raise ValueError(
+                    "classes are required on a multi-class store "
+                    f"(n_classes={self.n_classes})")
+            w = np.ones((len(transactions), self.n_classes), np.int32)
+        else:
+            if len(classes) != len(transactions):
+                raise ValueError("classes length != transactions length")
+            w = class_weights(classes, self.n_classes)
+        t0 = time.perf_counter()
+        bits = encode_bitmap(transactions,
+                             self.vocab if vocab is None else vocab)
+        t1 = time.perf_counter()
+        out = dedup_rows(bits, w)
+        if timings is not None:
+            timings["encode"] = t1 - t0
+            timings["dedup"] = time.perf_counter() - t1
+        return out
+
+    def _spill_threshold_resolved(self) -> Optional[int]:
+        """The host-RAM budget past which the base spills, or ``None`` when
+        the disk tier is unavailable (no directory configured / disabled)."""
+        if self._spill is False or self._spill_dir is None:
+            return None
+        return (DEFAULT_SPILL_THRESHOLD_BYTES if self._spill_threshold is None
+                else int(self._spill_threshold))
+
+    def _residency_for(self, bits, weights, vocab) -> str:
+        """Pick ``"dense"`` / ``"streaming"`` / ``"spilled"`` for a candidate
+        base.  Explicit ``spill=True`` wins; otherwise a configured spill
+        budget caps host residency (even forced-streaming bases), and with
+        nothing explicit the adaptive chooser decides from measured traits."""
+        if self._spill is True:
+            if self._spill_dir is None:
+                raise ValueError("spill=True requires spill_dir= (or "
+                                 "$REPRO_TORCH_SPILL_DIR)")
+            self.backend_choice = None
+            return "spilled"
+        spill_thr = self._spill_threshold_resolved()
+        stream = self._streaming
+        if stream is None and self.chunk_rows is not None:
+            # explicit chunk_rows opts in, mirroring _resolve_streaming in
+            # the mining stack
+            stream = True
+        if stream is None:
+            # adaptive residency: the chooser measures the encoded rows
+            # (footprint, density, skew, compressibility) instead of the old
+            # bare size threshold.  Non-residency verdicts (gfp/dense) keep
+            # the base device-dense — the measured choice itself is kept
+            # (stats + CountServer.mine consult it for the engine pick)
+            from ..mining.chooser import DatasetTraits, choose_backend
+            traits = DatasetTraits.measure(bits, weights, vocab, self.n_rows)
+            self.backend_choice = choose_backend(
+                traits, stream_threshold_bytes=self._stream_threshold,
+                spill_threshold_bytes=spill_thr)
+            if self.backend_choice.name in ("streaming", "spilled"):
+                return self.backend_choice.name
+            return "dense"
+        self.backend_choice = None
+        if spill_thr is not None and \
+                int(bits.nbytes + weights.nbytes) > spill_thr:
+            return "spilled"
+        return "streaming" if stream else "dense"
+
+    def _make_base(self, bits: np.ndarray, weights: np.ndarray, vocab=None):
+        vocab = self.vocab if vocab is None else vocab
+        residency = self._residency_for(bits, weights, vocab)
+        if residency == "spilled":
+            # generation directories: the new base lands in a fresh gen, the
+            # replaced one is deleted AFTER the swap (build-before-drop on
+            # disk too); the counter bump is atomic so a background build
+            # and an explicit compact() never share a directory
+            with self._store_lock:
+                gen = self._spill_gen
+                self._spill_gen += 1
+            gen_dir = os.path.join(self._spill_dir, f"gen{gen:05d}")
+            return SpilledDB.spill(vocab, bits, weights, self.n_rows,
+                                   self.n_classes, gen_dir,
+                                   chunk_rows=self.chunk_rows,
+                                   device=self.device)
+        if residency == "streaming":
+            return StreamingDB.from_arrays(vocab, bits, weights,
+                                           self.n_rows, self.n_classes,
+                                           chunk_rows=self.chunk_rows,
+                                           device=self.device)
+        return DenseDB.from_arrays(vocab, bits, weights,
+                                   self.n_rows, self.n_classes,
+                                   device=self.device)
+
+    # -- introspection --------------------------------------------------------
+    @property
+    def resident(self) -> str:
+        if isinstance(self.base, SpilledDB):
+            return "spilled"
+        return "streaming" if isinstance(self.base, StreamingDB) else "dense"
+
+    @property
+    def base_rows(self) -> int:
+        # a spilled base answers from its manifest — never touch the disk
+        # just to report a row count
+        u = getattr(self.base, "n_unique", None)
+        return int(u) if u is not None else int(self.base.bits.shape[0])
+
+    def _base_width(self) -> int:
+        w = getattr(self.base, "n_words", None)
+        return int(w) if w is not None else int(self.base.bits.shape[1])
+
+    @property
+    def delta_rows(self) -> int:
+        return 0 if self._delta_bits is None else int(self._delta_bits.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        # .nbytes is metadata on numpy arrays and tensors — and a manifest
+        # fact on a spilled base: no D2H copy or disk read just to report a
+        # size
+        if isinstance(self.base, SpilledDB):
+            base = int(self.base.nbytes)
+        else:
+            base = int(self.base.bits.nbytes + self.base.weights.nbytes)
+        if self._delta_bits is not None:
+            base += self._delta_bits.nbytes + self._delta_weights.nbytes
+        return base
+
+    def stats(self) -> dict:
+        # compactor stats are read BEFORE taking the store lock: its own _mu
+        # orders after _store_lock (request() under append), and a
+        # stats-name-resolved call under the held lock would hand repro-lint
+        # a reversed edge
+        comp = None if self._compactor is None else self._compactor.stats()
+        with self._store_lock:
+            out = {
+                "version": self.version, "n_rows": self.n_rows,
+                "n_classes": self.n_classes, "vocab_size": self.vocab.size,
+                "resident": self.resident, "base_rows": self.base_rows,
+                "delta_rows": self.delta_rows, "nbytes": self.nbytes,
+                "kernel_launches": self.kernel_launches,
+                "appends": self.n_appends, "compactions": self.n_compactions,
+                "failed_compactions": self.n_failed_compactions,
+                "last_compaction_error": self.last_compaction_error,
+                "min_compact_rows": self.min_compact_rows,
+                "backend_choice": (None if self.backend_choice is None
+                                   else self.backend_choice.name),
+                "spill": (None if not isinstance(self.base, SpilledDB) else {
+                    "directory": self.base.directory,
+                    "segments": self.base.n_chunks,
+                    "chunk_rows": self.base.chunk_rows,
+                    "disk_bytes": self.base.nbytes,
+                }),
+                "compactor": comp,
+                "device": str(self.device),
+            }
+        return out
+
+    # -- append ---------------------------------------------------------------
+    def append(
+        self,
+        transactions: Sequence[Sequence[Item]],
+        classes: Optional[Sequence[int]] = None,
+    ) -> int:
+        """Fold a new batch in; returns the new (bumped) ``version``.
+
+        The batch is encoded under the tail-extended vocab, deduped against
+        the current delta tail, and kept as the delta segment until the
+        ``merge_ratio`` compaction threshold folds it into the base.
+        An empty batch is a no-op (version unchanged: no count can differ).
+        """
+        transactions = [list(t) for t in transactions]
+        if not transactions:
+            return self.version
+        t0 = time.perf_counter()
+        # validate + encode BEFORE touching any store state: a rejected batch
+        # must leave no trace (no vocab tail, no totals, no version bump).
+        # Label-range validation comes first — the store's n_classes is fixed,
+        # so an out-of-range label can never be folded in
+        check_class_labels(classes, self.n_classes)
+        vocab = extend_vocab(transactions, self.vocab)
+        ub, uw = self._encode_batch(transactions, classes, vocab)
+        with self._store_lock:
+            totals = self._guard_totals(
+                self._class_totals + uw.sum(axis=0, dtype=np.int64))
+            self.vocab = vocab
+            self._class_totals = totals
+
+            w_now = self.vocab.n_words
+            if self._delta_bits is not None:
+                # dedup against the tail: one growing delta segment
+                ub, uw = dedup_rows(
+                    np.concatenate([pad_words(self._delta_bits, w_now), ub]),
+                    np.concatenate([self._delta_weights, uw]))
+            self._delta_bits, self._delta_weights = ub, uw
+            self._delta_device = None
+            self.n_rows += len(transactions)
+            self.n_appends += 1
+            self.version += 1
+            _M_APPENDS.inc()
+            _M_APPEND_ROWS.inc(len(transactions))
+            # merge_ratio decides WHEN the fold pays; min_compact_rows keeps
+            # a cold/tiny base from re-deduping the world on every append
+            if self.delta_rows >= self.min_compact_rows and \
+                    self.delta_rows > self.merge_ratio * max(1, self.base_rows):
+                if self._compactor is not None:
+                    # off the serving path: the append returns now, the
+                    # compactor thread snapshots/builds/commits behind
+                    # _store_lock (epoch-checked, failure-safe)
+                    self._compactor.request()
+                else:
+                    try:
+                        self.compact()
+                    except Exception as e:
+                        # compaction is a pure optimization and compact() is
+                        # failure-safe (the new base is built BEFORE the
+                        # delta drops), so the store still serves exact
+                        # counts from base+delta.  The batch IS committed at
+                        # this point — an escaping compactor error would
+                        # masquerade as a rejected append and invite a
+                        # double-counting retry.
+                        self.n_failed_compactions += 1
+                        self.last_compaction_error = f"{type(e).__name__}: {e}"
+                        _M_FAILED_COMPACTIONS.inc()
+        _H_APPEND_MS.observe((time.perf_counter() - t0) * 1e3)
+        return self.version
+
+    def _base_rows_host(self, base, w_now: int):
+        """The whole base as host arrays at width ``w_now``: a D2H copy of a
+        dense base, every segment of a spilled one."""
+        return pad_words(_host(base.bits), w_now), _host(base.weights)
+
+    def compact(self) -> None:
+        """Fold the delta into the base: full re-dedup at the current vocab
+        width, then residency reselection (dense vs streaming vs spilled) by
+        size.  Pure compaction — counts (and therefore ``version``) are
+        unchanged.  Explicit calls ignore the ``min_compact_rows`` floor
+        (the floor gates only append-triggered auto-compaction)."""
+        with self._store_lock, \
+                TRACER.span("store.compact",
+                            {"base_rows": self.base_rows,
+                             "delta_rows": self.delta_rows}):
+            w_now = self.vocab.n_words
+            base_bits, base_w = self._base_rows_host(self.base, w_now)
+            had_delta = self._delta_bits is not None
+            if had_delta:
+                base_bits = np.concatenate([base_bits, self._delta_bits])
+                base_w = np.concatenate([base_w, self._delta_weights])
+            ub, uw = dedup_rows(base_bits, base_w)
+            # build the new base BEFORE dropping the delta: a failure here
+            # (e.g. device OOM at residency reselection) must leave the
+            # composed base+delta counts intact, not silently lose the
+            # delta rows
+            old = self.base
+            self.base = self._make_base(ub, uw)
+            if had_delta:
+                self._delta_bits = self._delta_weights = None
+                self._delta_device = None
+                self.n_compactions += 1
+                _M_COMPACTIONS.inc()
+        self._drop_spilled(old)
+
+    def _drop_spilled(self, old_base) -> None:
+        """Delete a REPLACED spilled generation's segment directory.  Only
+        after the swap (on-disk build-before-drop), and never fatally — a
+        leaked directory is recoverable garbage, a crashed serve path is
+        not."""
+        if old_base is self.base or not isinstance(old_base, SpilledDB):
+            return
+        try:
+            old_base.delete()
+        except OSError as e:
+            with self._store_lock:
+                self.last_compaction_error = f"spill cleanup: {e}"
+
+    def _compact_pass(self) -> bool:
+        """One background compaction attempt (the ``AsyncCompactor``'s unit
+        of work).  Snapshot under the lock, build off-lock, commit under the
+        lock only if no append (or other compaction) landed in between.
+
+        Returns ``True`` when done (committed, nothing to do, or build
+        failed — failures are absorbed into ``last_compaction_error`` /
+        ``n_failed_compactions``, the delta stays intact) and ``False`` when
+        a concurrent append invalidated the build (caller may retry)."""
+        with self._store_lock:
+            if self._delta_bits is None:
+                return True
+            epoch = (self.n_appends, self.n_compactions)
+            vocab = self.vocab
+            base = self.base
+            dbits, dw = self._delta_bits, self._delta_weights
+        new_base = None
+        try:
+            with TRACER.span("store.bg_compact",
+                             {"delta_rows": int(dbits.shape[0])}):
+                w_now = vocab.n_words
+                base_bits, base_w = self._base_rows_host(base, w_now)
+                bits = np.concatenate([base_bits, pad_words(dbits, w_now)])
+                w = np.concatenate([base_w, dw])
+                ub, uw = dedup_rows(bits, w)
+                new_base = self._make_base(ub, uw, vocab=vocab)
+        except Exception as e:
+            with self._store_lock:
+                self.n_failed_compactions += 1
+                self.last_compaction_error = f"{type(e).__name__}: {e}"
+            _M_FAILED_COMPACTIONS.inc()
+            return True
+        with self._store_lock:
+            if (self.n_appends, self.n_compactions) != epoch:
+                committed = False
+            else:
+                self.base = new_base
+                self._delta_bits = self._delta_weights = None
+                self._delta_device = None
+                self.n_compactions += 1
+                committed = True
+        if committed:
+            _M_COMPACTIONS.inc()
+            self._drop_spilled(base)
+            return True
+        # a concurrent append won the race: this build counts rows that are
+        # no longer the whole story — discard it (and its on-disk gen)
+        if isinstance(new_base, SpilledDB):
+            new_base.delete()
+        return False
+
+    # -- counting -------------------------------------------------------------
+    def _narrow(self, masks: np.ndarray, w_seg: int):
+        """Truncate (K, W_now) masks to a segment's width.  Targets with bits
+        beyond the segment width reference items the segment predates — their
+        count over that segment is exactly 0 (returned as ``oob``)."""
+        if masks.shape[1] <= w_seg:
+            return masks, None
+        oob = masks[:, w_seg:].any(axis=1)
+        return np.ascontiguousarray(masks[:, :w_seg]), oob
+
+    @staticmethod
+    def _zero_oob(got: np.ndarray, oob: Optional[np.ndarray]) -> np.ndarray:
+        if oob is None:
+            return got
+        got = np.array(got)   # a copy: never write into a view of a result
+        got[oob] = 0
+        return got
+
+    def _delta_tensors(self):
+        """The delta's mirror on the store's device, built once per delta:
+        queries don't pay a fresh upload of identical delta bytes on every
+        flush (appends and compaction commits drop it)."""
+        if self._delta_device is None:
+            self._delta_device = (_upload(self._delta_bits, self.device),
+                                  _upload(self._delta_weights, self.device))
+        return self._delta_device
+
+    def _count_dense(self, bits: torch.Tensor, narrow: np.ndarray,
+                     weights: torch.Tensor, **kw) -> np.ndarray:
+        """One launch over a resident segment, copied back to the host."""
+        got = itemset_counts(bits, _upload(narrow, self.device), weights,
+                             use_kernel=self.use_kernel, **kw)
+        return got.cpu().numpy()
+
+    def counts_masks(self, masks: np.ndarray,
+                     block_k: Optional[int] = None) -> np.ndarray:
+        """(K, C) exact per-class counts for a (K, W_now) target block,
+        composed over base + delta segments (bit-identical to a fresh encode
+        of the full history: int32 sums commute with row partitioning).
+        ``block_k`` forwards the caller's K-block size to the kernel so a
+        block that was padded for it launches as one K-block."""
+        k = int(masks.shape[0])
+        if k == 0:
+            return np.zeros((0, self.n_classes), np.int32)
+        bk = {} if block_k is None else {"block_k": block_k}
+        total = np.zeros((k, self.n_classes), np.int32)
+        # the whole sweep runs under the store lock so a background commit
+        # cannot swap the base mid-composition (base counted pre-compaction
+        # + delta counted post-compaction would double-count the fold)
+        with self._store_lock:
+            # base segment
+            if self.base_rows:
+                narrow, oob = self._narrow(masks, self._base_width())
+                if isinstance(self.base, (StreamingDB, SpilledDB)):
+                    got = _host(self.base.counts(
+                        narrow, use_kernel=self.use_kernel, **bk))
+                    self.kernel_launches += self.base.n_chunks
+                else:
+                    got = self._count_dense(self.base.bits, narrow,
+                                            self.base.weights, **bk)
+                    self.kernel_launches += 1
+                total += self._zero_oob(got, oob)
+            # delta segment (bounded by merge_ratio * base_rows: one launch)
+            if self._delta_bits is not None:
+                narrow, oob = self._narrow(masks, self._delta_bits.shape[1])
+                d_bits, d_weights = self._delta_tensors()
+                got = self._count_dense(d_bits, narrow, d_weights, **bk)
+                self.kernel_launches += 1
+                total += self._zero_oob(got, oob)
+        return total
+
+    def counts(self, itemsets: Sequence[Sequence[Item]]) -> np.ndarray:
+        """(K, C) counts for raw itemsets.  Itemsets naming items absent from
+        the vocab count 0 (the paper's note: such targets never appear in the
+        FP-tree), matching ``dense_gfp_counts``.  One unknown-target contract,
+        shared with the flush path: ``build_masks`` + zeroing."""
+        return counts_for_itemsets(self, itemsets)
+
+
+def counts_for_itemsets(store, itemsets: Sequence[Sequence[Item]]
+                        ) -> np.ndarray:
+    """The ONE raw-itemset counting contract over any serving store (a
+    ``VersionedDB`` or a ``ShardedDB``: anything with ``vocab`` /
+    ``n_classes`` / ``counts_masks``): encode under the store vocab, count,
+    and zero targets naming never-seen items — whose exact count is 0."""
+    from .batcher import build_masks
+
+    if not len(itemsets):
+        return np.zeros((0, store.n_classes), np.int32)
+    masks, known = build_masks([tuple(s) for s in itemsets], store.vocab,
+                               block_k=1)
+    out = np.array(store.counts_masks(masks)[:len(itemsets)], np.int32)
+    out[~known] = 0
+    return out
+
+
+class VersionedCountBackend(CountBackend):
+    """:class:`~repro_torch.mining.backend.CountBackend` over a
+    :class:`VersionedDB` — the seam that lets the unified mining driver
+    (``mining/driver.py``) run against the serving store's composed
+    base+delta sweep, so it is exact mid-append without compaction.
+
+    Chunk layout for mid-level checkpoint resume: the base segment's chunks
+    first (the ``StreamingDB`` chunk grid when the base is host-resident, one
+    chunk when device-dense), then one chunk for the delta segment.  The
+    ``mine_signature`` pins the store ``version``: a checkpoint resumed after
+    an ``append`` is discarded wholesale (levels counted at an older version
+    are not valid progress), while pure compaction — which changes the chunk
+    geometry but no count — only restarts the in-flight level from chunk 0.
+    """
+
+    def __init__(self, store: VersionedDB):
+        self.store = store
+
+    @property
+    def vocab(self) -> ItemVocab:
+        return self.store.vocab
+
+    @property
+    def n_rows(self) -> int:
+        return self.store.n_rows
+
+    @property
+    def n_classes(self) -> int:
+        return self.store.n_classes
+
+    @property
+    def nbytes(self) -> int:
+        return self.store.nbytes
+
+    def _base_chunks(self) -> int:
+        if not self.store.base_rows:
+            return 0
+        return (self.store.base.n_chunks
+                if isinstance(self.store.base, (StreamingDB, SpilledDB))
+                else 1)
+
+    @property
+    def n_count_chunks(self) -> int:
+        delta = 1 if self.store._delta_bits is not None else 0
+        return max(1, self._base_chunks() + delta)
+
+    def chunk_signature(self) -> dict:
+        base = self.store.base
+        return {
+            "backend": "versioned", "version": self.store.version,
+            "base_rows": self.store.base_rows,
+            "delta_rows": self.store.delta_rows,
+            "chunk_rows": (base.chunk_rows
+                           if isinstance(base, (StreamingDB, SpilledDB))
+                           else None),
+        }
+
+    def mine_signature(self) -> dict:
+        return {"version": self.store.version}
+
+    def traits(self):
+        """Measured traits over the composed base+delta rows (the same rows
+        every sweep counts), for the adaptive engine pick in
+        ``CountServer.mine``."""
+        from dataclasses import replace as _dc_replace
+
+        from ..mining.chooser import TRAIT_SAMPLE_ROWS, DatasetTraits
+
+        store = self.store
+        with store._store_lock:
+            w_now = store.vocab.n_words
+            if isinstance(store.base, SpilledDB):
+                # sample the head segment instead of materializing the whole
+                # spilled base from disk; patch in the TRUE footprint so the
+                # chooser sees real size, not the sample's
+                bits, wts = store.base.head(TRAIT_SAMPLE_ROWS)
+                bits = pad_words(bits, w_now)
+                if store._delta_bits is not None:
+                    bits = np.concatenate(
+                        [bits, pad_words(store._delta_bits, w_now)])
+                    wts = np.concatenate([wts, store._delta_weights])
+                t = DatasetTraits.measure(bits, wts, store.vocab,
+                                          store.n_rows)
+                u = store.base_rows + store.delta_rows
+                return _dc_replace(
+                    t, nbytes=store.nbytes, n_unique=u,
+                    dedup_ratio=(u / store.n_rows if store.n_rows else 1.0))
+            bits, wts = store._base_rows_host(store.base, w_now)
+            if store._delta_bits is not None:
+                bits = np.concatenate(
+                    [bits, pad_words(store._delta_bits, w_now)])
+                wts = np.concatenate([wts, store._delta_weights])
+            return DatasetTraits.measure(bits, wts, store.vocab, store.n_rows)
+
+    def counts(self, masks: np.ndarray, *, start_chunk: int = 0,
+               init: Optional[np.ndarray] = None, on_chunk=None) -> np.ndarray:
+        store = self.store
+        k = int(masks.shape[0])
+        total = (np.zeros((k, store.n_classes), np.int32) if init is None
+                 else np.array(np.asarray(init), np.int32))
+        if k == 0:
+            return total
+        # under the store lock: a background compaction commit mid-sweep
+        # would change the chunk grid (and double-count the folded delta)
+        with store._store_lock:
+            nb = self._base_chunks()
+            if nb and start_chunk < nb:
+                narrow, oob = store._narrow(masks, store._base_width())
+                if isinstance(store.base, (StreamingDB, SpilledDB)):
+                    hook = None
+                    if on_chunk is not None:
+                        def hook(i, acc):
+                            a = np.asarray(acc)
+                            if i == nb - 1:
+                                # the saved boundary accumulator must already
+                                # be the finished base block (oob rows
+                                # zeroed): a resume at start_chunk == nb adds
+                                # delta directly
+                                a = store._zero_oob(a, oob)
+                            on_chunk(i, a)
+                    if isinstance(store.base, SpilledDB):
+                        acc = spilled_counts(
+                            store.base, narrow, use_kernel=store.use_kernel,
+                            start_chunk=start_chunk, init=total,
+                            on_chunk=hook)
+                    else:
+                        acc = streaming_counts(
+                            store.base.bits, narrow, store.base.weights,
+                            chunk_rows=store.base.chunk_rows,
+                            use_kernel=store.use_kernel,
+                            start_chunk=start_chunk, init=total,
+                            on_chunk=hook, device=store.device)
+                    store.kernel_launches += nb - start_chunk
+                    total = store._zero_oob(_host(acc), oob)
+                else:
+                    got = store._count_dense(store.base.bits, narrow,
+                                             store.base.weights)
+                    store.kernel_launches += 1
+                    total = total + store._zero_oob(got, oob)
+                    if on_chunk is not None:
+                        on_chunk(0, total)
+            if store._delta_bits is not None and start_chunk <= nb:
+                narrow, oob = store._narrow(masks, store._delta_bits.shape[1])
+                d_bits, d_weights = store._delta_tensors()
+                got = store._count_dense(d_bits, narrow, d_weights)
+                store.kernel_launches += 1
+                total = total + store._zero_oob(got, oob)
+                if on_chunk is not None:
+                    on_chunk(nb, total)
+            elif nb == 0 and start_chunk == 0 and on_chunk is not None:
+                # empty store: n_count_chunks still claims a 1-chunk grid, so
+                # the (trivially exact, all-zero) sweep must COMPLETE that
+                # chunk — otherwise a checkpointed mine records zero chunk
+                # progress against a claimed chunk and the partial never
+                # becomes resumable
+                on_chunk(0, total)
+        return total
