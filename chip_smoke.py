@@ -126,11 +126,44 @@ phase, and fail on the first phase that fails.
     sharing the card on mesh (2, 1) (``chip_smoke._serve_rank``), each
     checking its own counts and refusing ``async_flush``; per-flush wall
     ms and the all-reduce's ms.
+15. The rule server, the exporter, the lock watcher and the launcher,
+    untuned.  (1) ``RuleServer`` over a second ``CountServer`` of phase 5's
+    1,000,000 transactions: ``top_rules(1e-4, 0.01)`` equal to phase 5's
+    rules in order, and with ``optimal=True`` to ``optimal_rule_set`` of
+    them, with the mine's chooser verdict (``dense``) and seconds;
+    ``rules_for`` of all 1,770 pairs and 34,220 triples at min_conf 0.01
+    equal to rules made from the plain version's counts; per-call wall ms
+    of ``rules_for`` at 1, 64 and 256 antecedents, cold (fresh caches: one
+    K1 launch a call) and warm (rule-cache hits: none), median and p99 of
+    20 calls, and the rule cache's hit rate; an append of 10,000 rows (seed
+    1) through the rule server, after which the 8 prefetched hottest keys
+    are answered from the rule cache and equal rules from a fresh plain
+    count of all rows packed again in numpy.  (2) ``start_metrics_server(0)``
+    during that traffic: ``/metrics`` and ``/metrics.json`` fetched with
+    ``urllib``, ``serve_flush_ms_count`` in the text equal to the
+    snapshot's.  (3) ``instrument_server`` on phase 14 (5)'s 200,000-row
+    async server with background compaction, a ``RuleServer`` over it: four
+    threads race ``rules_for`` and ``submit_async`` against 8 appends of
+    2,000 rows through the rule server; no lock-order cycle, the server ->
+    flusher and store -> compactor edges observed, every verdict and future
+    exact at a version between its call and the last append.  (4)
+    ``python -m repro_torch.launch.serve_counts --rows 200000 --items 60
+    --p-x 0.125 --p-y 0.01 --verify`` as subprocesses, the variants side
+    by side: (a) ``--rules --theta 0.001 --min-conf 0.01 --appends 2
+    --append-rows 2000`` with a metrics dump and a trace under
+    ``build/serve_counts/``, (b) ``--shards 2 --async-flush --max-delay-ms
+    25 --theta 0.001``, (c) ``--spill-dir build/spill_launch
+    --spill-threshold-bytes 4096 --bg-compact --min-compact-rows 64
+    --theta 0.001`` twice into the same directory (the second run
+    re-spills over the first's store), (d) ``--shards 2 --mesh-data 1`` on
+    a one-rank NCCL group; each must exit 0 with its verified lines; its
+    wall seconds and the wrapper's launch counters from its output.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
-spilled path, on each rank of each mesh, and on the count server's path
-counted apart in ``launches_by_path``) and
+spilled path, on each rank of each mesh, and on the count server's, the
+rule server's and the launcher's paths counted apart in
+``launches_by_path``) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -138,6 +171,7 @@ import contextlib
 import io
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -332,7 +366,6 @@ def _numpy_pair_counts(bits, w, pairs, block=1 << 23):
 def _evict(directory):
     """Drop a store's files from the page cache (clean pages only: the
     spill fsync'd them), so the next sweep reads the disk."""
-    import os
     for name in os.listdir(directory):
         fd = os.open(os.path.join(directory, name), os.O_RDONLY)
         try:
@@ -1502,6 +1535,407 @@ def _count_server(dev, tx_rows, y, want_freq, k1_level3_ms):
     return launches
 
 
+# Phase 15's launcher runs: (label, extra arguments, runs into one
+# directory one after the other).  Every run adds the common arguments.
+LAUNCH_ROWS = 200_000
+LAUNCH_VARIANTS = (
+    ("(a) rules", ["--rules", "--theta", "0.001", "--min-conf", "0.01",
+                   "--appends", "2", "--append-rows", "2000"], 1),
+    ("(b) shards + async", ["--shards", "2", "--async-flush",
+                            "--max-delay-ms", "25", "--theta", "0.001"], 1),
+    ("(c) spill + bg compaction", ["--spill-dir", "build/spill_launch",
+                                   "--spill-threshold-bytes", "4096",
+                                   "--bg-compact", "--min-compact-rows",
+                                   "64", "--theta", "0.001"], 2),
+    ("(d) mesh (1, 1), NCCL", ["--shards", "2", "--mesh-data", "1"], 1),
+)
+
+
+def _launch_runs(dev, rows):
+    """Phase 15 (4): the ``serve_counts`` launcher as subprocesses, the
+    variants side by side (the runs of one variant one after the other, so
+    that the second re-spills over the first's store).  Returns per run its
+    label, wall seconds, store launches and the wrapper's launch counters
+    parsed from its output."""
+    import shutil
+
+    out_dir = ROOT / "build" / "serve_counts"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "spill_launch", ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    common = ["--rows", str(rows), "--items", "60", "--p-x", "0.125",
+              "--p-y", "0.01", "--verify", "--device", dev.type]
+
+    def start(i, label, extra, rep):
+        args = list(extra)
+        if label.startswith("(a)"):
+            args += ["--metrics-dump", "build/serve_counts/metrics.json",
+                     "--trace", "build/serve_counts/trace.json"]
+        log = out_dir / f"run{i}_{rep}.log"
+        f = open(log, "w")
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve_counts"]
+            + common + args, cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+        return dict(label=label, rep=rep, log=log, proc=p, file=f,
+                    t0=time.perf_counter(), args=args)
+
+    pending = {i: list(range(reps)) for i, (_, _, reps) in
+               enumerate(LAUNCH_VARIANTS)}
+    running = {i: start(i, LAUNCH_VARIANTS[i][0], LAUNCH_VARIANTS[i][1],
+                        pending[i].pop(0)) for i in pending}
+    done = []
+    deadline = time.monotonic() + 600
+    try:
+        while running:
+            if time.monotonic() > deadline:
+                raise AssertionError("serve_counts runs still going after "
+                                     "600 s")
+            for i, r in list(running.items()):
+                if r["proc"].poll() is None:
+                    continue
+                r["wall_s"] = time.perf_counter() - r["t0"]
+                r["file"].close()
+                done.append(r)
+                del running[i]
+                if pending[i]:
+                    running[i] = start(i, *LAUNCH_VARIANTS[i][:2],
+                                       pending[i].pop(0))
+            time.sleep(0.05)
+    finally:
+        for r in running.values():
+            r["proc"].kill()
+            r["proc"].wait()
+            r["file"].close()
+    results = []
+    for r in sorted(done, key=lambda r: (r["label"], r["rep"])):
+        text = r["log"].read_text()
+        if r["proc"].returncode != 0:
+            raise AssertionError(f"serve_counts {r['label']} run {r['rep']}"
+                                 f" exited {r['proc'].returncode}:\n"
+                                 f"{text[-3000:]}")
+        if not re.search(r"verified \d+ keys bit-identical", text):
+            raise AssertionError(f"serve_counts {r['label']}: no verified "
+                                 "line")
+        if "--rules" in r["args"] and \
+                "== host minority_report oracle" not in text:
+            raise AssertionError(f"serve_counts {r['label']}: no host "
+                                 "minority_report oracle line")
+        m = re.search(r"kernel launches by route: (\d+) \(vpu_int32 (\d+), "
+                      r"mxu_f32 (\d+); accumulate-into (\d+)\)", text)
+        store = re.search(r"; (\d+) kernel launches\n", text)
+        if m is None or store is None:
+            raise AssertionError(f"serve_counts {r['label']}: no launch "
+                                 "lines")
+        launches, vpu, mxu, into = (int(g) for g in m.groups())
+        if dev.type == "cuda" and vpu == 0:
+            raise AssertionError(f"serve_counts {r['label']}: no K1 launch")
+        results.append(dict(
+            label=r["label"], rep=r["rep"], wall_s=r["wall_s"],
+            store_launches=int(store.group(1)), launches=launches,
+            k1=vpu - into, k2=mxu, k3=into,
+            lines=[ln for ln in text.splitlines()
+                   if ln.startswith(("verified", "resident", "mined",
+                                     "top_rules", "served", "async:",
+                                     "rules:", "append"))]))
+    return results
+
+
+def _rule_server(dev, tx_rows, y, main_rules, launch_rows=LAUNCH_ROWS):
+    """Phase 15: the rule server at the main path's 1,000,000 rows, the
+    exporter, the lock watcher and the ``serve_counts`` launcher (see the
+    module docstring).  Returns the launches by path."""
+    import threading
+    import urllib.request
+    from dataclasses import astuple as _t
+    from itertools import combinations
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import optimal_rule_set
+    from repro_torch.data import bernoulli_db
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.kernels.itemset_count.ops import itemset_counts
+    from repro_torch.mining import encode_targets
+    from repro_torch.obs.export import start_metrics_server
+    from repro_torch.roofline import autotune
+    from repro_torch.serve import (CountCache, CountServer, RuleCache,
+                                   RuleServer, canonical_itemset)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    autotune.set_active_table(None)
+    n_main = len(tx_rows)
+    theta, min_conf = MAIN["min_support"], MAIN["min_conf"]
+    t = time.perf_counter()
+    srv = CountServer(tx_rows, classes=y, n_classes=2, device=dev)
+    sync()
+    st = srv.store
+    print(f"   (1) CountServer over {n_main} rows built in "
+          f"{time.perf_counter() - t:.3f} s: {st.resident}, base_rows "
+          f"{st.base_rows}, backend_choice {st.backend_choice.name}; "
+          f"RuleServer(target_class=1, prefetch_top 8)", flush=True)
+    ruler = RuleServer(srv)
+    metrics = start_metrics_server(0)
+
+    # the rule server's path, its counts set to 0 just before it
+    for key in ops.KERNEL_LAUNCHES_BY_ACCUM:
+        ops.KERNEL_LAUNCHES_BY_ACCUM[key] = 0
+    ops.KERNEL_LAUNCHES_INTO = 0
+    ops.KERNEL_LAUNCHES = 0
+
+    # ---- (1) top_rules at the main path's theta and min_conf ---------------
+    t = time.perf_counter()
+    top = ruler.top_rules(theta, min_conf)
+    t_top = time.perf_counter() - t
+    verdict = srv.last_backend_choice
+    tr = verdict.traits
+    if [_t(r) for r in top] != [_t(r) for r in main_rules]:
+        raise AssertionError("top_rules != phase 5's rules")
+    t = time.perf_counter()
+    opt = ruler.top_rules(theta, min_conf, optimal=True)
+    t_opt = time.perf_counter() - t
+    if [_t(r) for r in opt] != [_t(r) for r in optimal_rule_set(main_rules)]:
+        raise AssertionError("top_rules(optimal=True) != optimal_rule_set "
+                             "of phase 5's rules")
+    if verdict.name != "dense":
+        raise AssertionError(f"the chooser picked {verdict.name} for "
+                             "top_rules' mine, expected dense")
+    print(f"   top_rules({theta}, {min_conf}): {len(top)} rules == phase 5's"
+          f", in order, {t_top:.3f} s; the mine's chooser verdict "
+          f"{verdict.name} ({verdict.reason}; density {tr.density:.4f}, "
+          f"skew {tr.skew:.3f}x); optimal=True {len(opt)} rules == "
+          f"optimal_rule_set of phase 5's, {t_opt:.3f} s", flush=True)
+
+    # every pair and triple at min_conf against the plain version's counts
+    pool = list(combinations(range(60), 2)) + list(combinations(range(60),
+                                                                3))
+    masks = encode_targets(pool, st.vocab)
+    plain = itemset_counts(st.base.bits, torch.from_numpy(masks).to(dev),
+                           st.base.weights, use_kernel=False).cpu().numpy()
+
+    def expect(rows, keys, n_db, mc):
+        out = []
+        for key, row in zip(keys, rows):
+            cnt, gcnt = int(row[1]), int(row[0])
+            conf = cnt / (cnt + gcnt) if (cnt + gcnt) else 0.0
+            out.append(None if conf < mc else (
+                canonical_itemset(key), 1, cnt / n_db, conf, cnt, gcnt))
+        return out
+
+    def as_t(rules):
+        return [None if r is None else _t(r) for r in rules]
+
+    n0 = st.kernel_launches
+    t = time.perf_counter()
+    got = ruler.rules_for(pool, min_conf=min_conf)
+    t_all = time.perf_counter() - t
+    want_all = expect(plain, pool, n_main, min_conf)
+    if as_t(got) != want_all:
+        raise AssertionError("rules_for over all pairs and triples != rules "
+                             "from the plain version's counts")
+    print(f"   rules_for all {len(pool)} pairs and triples at min_conf "
+          f"{min_conf}: {sum(r is not None for r in got)} rules == the plain "
+          f"version's, {t_all * 1e3:.3f} ms, {st.kernel_launches - n0} "
+          f"launch", flush=True)
+
+    # per-call latency, cold (fresh caches: one launch a call) and warm
+    index = {key: i for i, key in enumerate(pool)}
+    order = np.random.default_rng(15).permutation(len(pool))
+    lat = {}
+    nxt = 0
+    for b in (1, 64, 256):
+        ruler.cache = RuleCache()
+        srv.cache = CountCache()
+        groups = [[pool[i] for i in order[nxt + j * b:nxt + (j + 1) * b]]
+                  for j in range(20)]
+        nxt += 20 * b
+        cold, warm = [], []
+        for phase, times in (("cold", cold), ("warm", warm)):
+            for keys in groups:
+                n0 = st.kernel_launches
+                t = time.perf_counter()
+                got = ruler.rules_for(keys, min_conf=min_conf)
+                times.append((time.perf_counter() - t) * 1e3)
+                n = st.kernel_launches - n0
+                if n != (1 if phase == "cold" else 0):
+                    raise AssertionError(f"{phase} rules_for of {b}: {n} "
+                                         "launches")
+                if as_t(got) != [want_all[index[k]] for k in keys]:
+                    raise AssertionError(f"{phase} rules_for of {b} != the "
+                                         "plain version's")
+        lat[b] = (_quantiles(cold), _quantiles(warm))
+        (c50, c99, _), (w50, w99, _) = lat[b]
+        print(f"   rules_for batch {b:>3}: cold median {c50:.3f} ms, p99 "
+              f"{c99:.3f} ms (1 launch each); warm median {w50:.3f} ms, p99 "
+              f"{w99:.3f} ms (rule-cache hits, 0 launches); 20 calls each",
+              flush=True)
+    rc = ruler.stats()["rule_cache"]
+    print(f"   rule cache over the latency runs: hit rate "
+          f"{rc['hit_rate']:.4f} ({rc['hits']} hits, {rc['misses']} misses)",
+          flush=True)
+
+    # count traffic beside the rules: five flushes for the exporter
+    for i in range(5):
+        srv.submit(f"c{i}", [pool[order[-1 - i]]])
+        srv.flush()
+
+    # ---- (1) an append through the rule server, then the prefetched keys ---
+    tx_a, y_a = bernoulli_db(10_000, 60, 0.125, 0.01, seed=1)
+    hottest = [k for (k, tc, mc), _ in sorted(
+        ruler._heat.items(), key=lambda kv: (-kv[1], repr(kv[0])))[:8]]
+    t = time.perf_counter()
+    v = ruler.append(tx_a, classes=y_a)
+    t_app = time.perf_counter() - t
+    main_rows = _bernoulli_rows(n_main, 0)
+    fresh = [_pack(*main_rows, st.vocab), _pack(*_bernoulli_rows(10_000, 1),
+                                                st.vocab)]
+    want_hot = expect(_plain_counts(dev, fresh,
+                                    encode_targets(hottest, st.vocab)),
+                      hottest, st.n_rows, min_conf)
+    n0, h0 = st.kernel_launches, ruler.cache.hits
+    got = ruler.rules_for(hottest, min_conf=min_conf)
+    if st.kernel_launches != n0 or ruler.cache.hits != h0 + len(hottest):
+        raise AssertionError("the prefetched hottest keys were not answered "
+                             "from the rule cache")
+    if v != 1 or as_t(got) != want_hot:
+        raise AssertionError("prefetched rules after the append != rules "
+                             "from a fresh plain count of all rows")
+    print(f"   append of 10,000 rows (seed 1) through the rule server "
+          f"{t_app:.3f} s, version {v}, {ruler.n_prefetched_keys} hottest "
+          f"keys re-warmed: answered from the rule cache (0 launches) == "
+          f"rules from a fresh plain count of all {st.n_rows} rows",
+          flush=True)
+
+    # ---- (2) the exporter ---------------------------------------------------
+    try:
+        port = metrics.server_address[1]
+        text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=30).read().decode()
+        snap = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics.json", timeout=30).read())
+    finally:
+        metrics.shutdown()
+    m = re.search(r"^serve_flush_ms_count (\d+)$", text, re.M)
+    want_n = snap["histograms"]["serve_flush_ms"][""]["count"]
+    if m is None or int(m.group(1)) != want_n or want_n < 5:
+        raise AssertionError(f"/metrics serve_flush_ms_count "
+                             f"{m and m.group(1)} != the snapshot's {want_n}")
+    print(f"   (2) /metrics ({len(text)} bytes, "
+          f"{text.count('# TYPE')} metrics) and /metrics.json fetched: "
+          f"serve_flush_ms_count {m.group(1)} == the snapshot's; server shut "
+          f"down", flush=True)
+    del srv, st, ruler, plain, fresh
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- (3) the lock watcher -----------------------------------------------
+    n5 = 200_000
+    tx5, y5 = tx_rows[:n5], y[:n5]
+    asrv = CountServer(tx5, classes=y5, n_classes=2, device=dev,
+                       background_compaction=True, async_flush=True,
+                       max_delay_ms=5, min_batch=8, merge_ratio=0.005)
+    aruler = RuleServer(asrv)
+    watcher = obs.instrument_server(asrv, registry=obs.REGISTRY)
+    avocab = asrv.store.vocab
+    batches = [bernoulli_db(2_000, 60, 0.125, 0.01, seed=100 + i)
+               for i in range(8)]
+    keys5 = [pool[i] for i in order[:512]]
+    seen = []
+    lock = threading.Lock()
+
+    def client(c):
+        for key in keys5[c * 128:(c + 1) * 128]:
+            v0 = asrv.store.version
+            (rule,) = aruler.rules_for([key], min_conf=0.0)
+            fut = asrv.submit_async(f"client{c}", [key])
+            with lock:
+                seen.append((key, v0, rule, fut))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    t = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for tx_i, y_i in batches:
+            aruler.append(tx_i, classes=y_i)
+        for th in threads:
+            th.join(120)
+        asrv.close()
+    finally:
+        while isinstance(obs.REGISTRY._lock, obs.WatchedLock):
+            obs.REGISTRY._lock = obs.REGISTRY._lock._lock
+    t3 = time.perf_counter() - t
+    sync()
+    # the rule server's path ends here (steps 1 and 3)
+    launches = dict(
+        k1=ops.KERNEL_LAUNCHES_BY_ACCUM["vpu_int32"] - ops.KERNEL_LAUNCHES_INTO,
+        k2=ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"],
+        k3=ops.KERNEL_LAUNCHES_INTO)
+    if dev.type == "cuda" and launches["k1"] == 0:
+        raise AssertionError("the rule server's path launched no K1")
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("lock-watcher clients still running")
+    m5 = encode_targets(keys5, avocab)
+    head = (main_rows[0][:n5], main_rows[1][:n5])
+    at_version = [_plain_counts(dev, [_pack(*head, avocab)], m5)]
+    for i in range(8):
+        at_version.append(at_version[-1] + _plain_counts(
+            dev, [_pack(*_bernoulli_rows(2_000, 100 + i), avocab)], m5))
+    row = {key: i for i, key in enumerate(keys5)}
+    for key, v0, rule, fut in seen:
+        got = fut.result(timeout=1)[0]
+        want = [at_version[v][row[key]] for v in range(v0, 9)]
+        if not any(np.array_equal(got, w) for w in want):
+            raise AssertionError(f"async future for {key}: {got} is the "
+                                 "count at no version from its submit on")
+        if not any((rule.g_count, rule.count) == (int(w[0]), int(w[1]))
+                   and rule.support == rule.count / (len(tx5) + 2_000 * v)
+                   for v, w in zip(range(v0, 9), want)):
+            raise AssertionError(f"rule verdict for {key} is exact at no "
+                                 "version from its call on")
+    edges = watcher.edges()
+    need = [("CountServer._lock", "AsyncFlusher._lat_lock"),
+            ("VersionedDB._store_lock", "AsyncCompactor._mu")]
+    if watcher.cycles() or any(e not in edges for e in need):
+        raise AssertionError(f"lock watcher: {watcher.report()}")
+    ast = asrv.stats()
+    print(f"   (3) instrumented async server over {len(tx5)} rows "
+          f"(background "
+          f"compaction): 4 threads x 128 rules_for + submit_async while 8 "
+          f"appends of 2,000 rows went through the rule server, {t3:.3f} s; "
+          f"all {len(seen)} verdicts and futures exact at a version between "
+          f"their call and the last append; {ast['store']['compactions']} "
+          f"background compactions; no lock-order cycle; edges:", flush=True)
+    for (a, b), n in sorted(edges.items()):
+        print(f"     {a} -> {b}: {n}")
+    del asrv, aruler
+
+    # ---- (4) the launcher ---------------------------------------------------
+    runs = _launch_runs(dev, launch_rows)
+    for r in runs:
+        print(f"   (4) serve_counts {r['label']} run {r['rep'] + 1}: exit 0, "
+              f"{r['wall_s']:.3f} s wall (variants side by side), "
+              f"{r['store_launches']} store launches, K1 {r['k1']}, K2 "
+              f"{r['k2']}, K3 {r['k3']}", flush=True)
+        for ln in r["lines"]:
+            print(f"       | {ln}")
+    launches.update(
+        launcher_k1=sum(r["k1"] for r in runs),
+        launcher_k2=sum(r["k2"] for r in runs),
+        launcher_k3=sum(r["k3"] for r in runs),
+        rule_lat=lat, t_top=t_top, verdict=verdict.name)
+    return launches
+
+
 def _fmt_ms(d):
     return ", ".join(f"{key} {v:.4f}" if v is not None else f"{key} -"
                      for key, v in d.items())
@@ -2288,6 +2722,13 @@ def main() -> int:
     serve = _count_server(dev, tx_rows, y, want_freq, per_launch[1]["ms"])
     _done(t0)
 
+    # ---- 15. the rule server, the exporter, the lock watcher, the launcher ---
+    t0 = _phase("15. rule server at 1,000,000 rows, exporter, lock watcher, "
+                "serve_counts launcher (untuned)")
+    print(f"   card: {smi}")
+    rule = _rule_server(dev, tx_rows, y, dense.rules)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -2296,9 +2737,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/itemset_count/kernel.py:32",
         # the main path's run (phase 5) and the count server's (phase 14),
         # each read with the counts set to 0 just before it
-        "launches": dense_launches + serve["k1"],
+        "launches": (dense_launches + serve["k1"] + rule["k1"]
+                     + rule["launcher_k1"]),
         "launches_by_path": {"main path (phase 5)": dense_launches,
-                             "count server (phase 14)": serve["k1"]},
+                             "count server (phase 14)": serve["k1"],
+                             "rule server (phase 15)": rule["k1"],
+                             "serve_counts launcher (phase 15)":
+                             rule["launcher_k1"]},
         "max_abs_err": max_err,
         # the main path's work: one launch at each of its three geometries
         "ms": sum(p["ms"] for p in per_launch),
@@ -2352,9 +2797,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/itemset_count/ops.py:138",
         # the streamed main path (phase 5): 8 chunks a level; the count
         # server's streamed and spilled bases (phase 14)
-        "launches": into_launches + serve["k3"],
+        "launches": (into_launches + serve["k3"] + rule["k3"]
+                     + rule["launcher_k3"]),
         "launches_by_path": {"streamed main path (phase 5)": into_launches,
-                             "count server (phase 14)": serve["k3"]},
+                             "count server (phase 14)": serve["k3"],
+                             "rule server (phase 15)": rule["k3"],
+                             "serve_counts launcher (phase 15)":
+                             rule["launcher_k3"]},
         "max_abs_err": max_err,
         # the 8-chunk sweeps at the three geometries: kernels in the trace
         "ms": (sum(p["k3_kernels_ms"] for p in per_launch)

@@ -30,14 +30,28 @@ def brute_force_counts(
 
 
 def apriori_gen(frequent_k: Set[FrozenSet], k: int) -> List[FrozenSet]:
-    """Candidate generation with prefix join + anti-monotone prune."""
+    """Candidate generation with prefix join + anti-monotone prune.
+
+    Each frequent k-set is a tuple of its items in ``repr`` order; two
+    k-sets are joined only when they share their first k - 1 items.  Every
+    (k+1)-set whose k-subsets are all frequent is the join of the two that
+    drop its last and its second-to-last item, so the candidates are those
+    of a join over all pairs (the JAX package's, which pays F^2 unions for
+    F frequent k-sets: about 585M for the 34,220 triples of a level-4 mine
+    over 60 items) at the cost of the pairs within each prefix group."""
+    groups: Dict[Tuple, List] = {}
+    for s in frequent_k:
+        t = tuple(sorted(s, key=repr))
+        groups.setdefault(t[:-1], []).append(t[-1])
     cands: Set[FrozenSet] = set()
-    freq = sorted(frequent_k, key=lambda s: tuple(sorted(map(repr, s))))
-    for i, a in enumerate(freq):
-        for b in freq[i + 1:]:
-            u = a | b
-            if len(u) == k + 1:
-                if all(frozenset(c) in frequent_k for c in combinations(u, k)):
+    for prefix, lasts in groups.items():
+        lasts.sort(key=repr)
+        for i, a in enumerate(lasts):
+            for b in lasts[i + 1:]:
+                u = frozenset(prefix + (a, b))
+                if len(u) == k + 1 and all(
+                        frozenset(c) in frequent_k
+                        for c in combinations(u, k)):
                     cands.add(u)
     return sorted(cands, key=lambda s: tuple(sorted(map(repr, s))))
 

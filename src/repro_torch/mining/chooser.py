@@ -1,7 +1,8 @@
 """Adaptive backend chooser: pick a counting engine from MEASURED dataset
 characteristics instead of a fixed size threshold.
 
-``DatasetTraits.measure`` samples the encoded bitmap and derives:
+``DatasetTraits.measure`` samples rows spread evenly over the encoded
+bitmap (``sample_index``) and derives:
 
   * ``density``     — mean fraction of vocab bits set per (sampled) unique
                       row.  Dense rows mean long frequent patterns and deep
@@ -85,6 +86,19 @@ TRAIT_SAMPLE_ROWS = 4096
 _TRAIT_SAMPLE_COLS = 4096
 
 
+def sample_index(u: int, s: int) -> np.ndarray:
+    """``s`` row indices spread evenly over ``u`` rows (``s <= u``): row
+    ``(i * u) // s`` for i < s, so ``s == u`` is every row.
+
+    ``dedup_rows`` returns its rows sorted, so the first rows of a
+    deduplicated bitmap are the emptiest ones; a head sample of a large DB
+    reads its density and skew far off (a deliberate difference from the
+    JAX package, which samples ``bits[:s]``)."""
+    if s <= 0:
+        return np.zeros(0, np.int64)
+    return (np.arange(s, dtype=np.int64) * int(u)) // int(s)
+
+
 @dataclass(frozen=True)
 class DatasetTraits:
     """Measured characteristics of an encoded DB (see module docstring)."""
@@ -112,12 +126,13 @@ class DatasetTraits:
                        else 1,
                        nbytes=nbytes, density=0.0, skew=1.0, dedup_ratio=1.0)
         s = min(u, sample_rows)
-        sample = np.ascontiguousarray(bits[:s], np.uint32)
+        idx = sample_index(u, s)
+        sample = np.ascontiguousarray(bits[idx], np.uint32)
         # mean bits-set per sampled unique row, as a fraction of the vocab
         popcnt = np.unpackbits(sample.view(np.uint8), axis=1).sum(axis=1)
         density = float(popcnt.mean()) / vocab.size
         # weighted per-item supports over the sample (stride-capped columns)
-        wtot = weights[:s].sum(axis=1, dtype=np.int64)
+        wtot = weights[idx].sum(axis=1, dtype=np.int64)
         ncols = min(vocab.size, _TRAIT_SAMPLE_COLS)
         sup = np.empty(ncols, np.int64)
         for c in range(ncols):

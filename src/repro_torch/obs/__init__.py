@@ -1,9 +1,14 @@
 """Unified telemetry layer: one process-wide metrics registry + span tracer.
 
-The mining driver's level/chunk loop and the kernel wrapper's per-launch
-device time against the roofline model's prediction record here.  Exports:
-``snapshot()`` (JSON-safe), Chrome trace dumps (``obs.tracing``), and the
-``summary_line()`` one-liner every entry point prints on exit.
+Every seam of the serve/mine/kernel stack records here — the batcher, the
+async flusher, both caches, the versioned/sharded stores, the mining
+driver's level/chunk loop, the GFP hybrid's counters, the chooser's
+decisions, and the kernel wrapper's per-launch device time against the
+roofline model's prediction.  Exports: ``snapshot()`` (JSON-safe),
+``prometheus_text`` / ``start_metrics_server`` (``obs.export``), Chrome
+trace dumps (``obs.tracing``), the ``summary_line()`` one-liner every
+entry point prints on exit, and the runtime lock-order watcher
+(``obs.lockwatch``).
 
 State model:
 
@@ -21,13 +26,15 @@ State model:
     subset; ``disable_all()`` is the zero-overhead escape hatch (pinned by
     the no-allocation contract of the tracer and registry).
 
-Import discipline: this package imports only the stdlib — mining/,
-kernels/ and roofline/ import it, never the reverse.
+Import discipline: this package imports only the stdlib — serve/,
+mining/, kernels/ and roofline/ import it, never the reverse.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+from .lockwatch import (LockOrderError, LockOrderWatcher, WatchedLock,
+                        instrument_server)
 from .metrics import (MetricsRegistry, counter_total, counter_value,
                       hist_get, hist_merge, hist_quantile, nearest_rank)
 from .tracing import Tracer
@@ -39,6 +46,8 @@ __all__ = [
     "kernel_efficiency", "telemetry_section", "register_section",
     "counter_total", "counter_value", "hist_get", "hist_merge",
     "hist_quantile", "nearest_rank", "MetricsRegistry", "Tracer",
+    "LockOrderError", "LockOrderWatcher", "WatchedLock",
+    "instrument_server",
 ]
 
 REGISTRY = MetricsRegistry(enabled=True)

@@ -4,14 +4,16 @@
 # (itemset, version)-keyed LRU result cache, §5.2 incremental re-mining, a
 # sharded store spanning a torch.distributed device mesh (exact all-reduced
 # counts), a deadline/occupancy-triggered background flush loop and a
-# background compactor.  Every store counts on its ``device`` (default: the
-# card).  The JAX package's MRA rule server (RuleServer, RuleCache) is not
-# part of this package yet.
+# background compactor, and MRA minority-rule serving (RuleServer:
+# confidence from the per-class count rows, rule cache keyed on
+# (antecedent, version, min_conf), version prefetch on append).  Every store
+# counts on its ``device`` (default: the card).
 from .async_loop import AsyncFlusher, CountFuture
 from .compactor import AsyncCompactor
 from .batcher import (BatchPlan, MicroBatcher, QueryRequest, build_masks,
                       canonical_itemset)
 from .cache import CountCache
+from .rules import RuleCache, RuleServer
 from .service import (CountServer, MiningRefreshError,
                       versioned_mine_frequent)
 from .shard import ShardedCountBackend, ShardedDB
@@ -22,6 +24,6 @@ __all__ = [
     "MicroBatcher",
     "QueryRequest", "build_masks", "canonical_itemset", "CountCache",
     "CountServer", "MiningRefreshError", "versioned_mine_frequent",
-    "ShardedCountBackend", "ShardedDB",
+    "RuleCache", "RuleServer", "ShardedCountBackend", "ShardedDB",
     "VersionedCountBackend", "VersionedDB", "check_class_labels",
 ]

@@ -708,24 +708,29 @@ class VersionedCountBackend(CountBackend):
         ``CountServer.mine``."""
         from dataclasses import replace as _dc_replace
 
-        from ..mining.chooser import TRAIT_SAMPLE_ROWS, DatasetTraits
+        from ..mining.chooser import (TRAIT_SAMPLE_ROWS, DatasetTraits,
+                                      sample_index)
 
         store = self.store
         with store._store_lock:
             w_now = store.vocab.n_words
             if isinstance(store.base, SpilledDB):
-                # sample the head segment instead of materializing the whole
-                # spilled base from disk; patch in the TRUE footprint so the
-                # chooser sees real size, not the sample's
-                bits, wts = store.base.head(TRAIT_SAMPLE_ROWS)
+                # sample rows spread over every segment and the delta (the
+                # rows measure() would pick from the composed bitmap)
+                # instead of materializing the whole spilled base from disk;
+                # patch in the TRUE footprint so the chooser sees real
+                # size, not the sample's
+                nb, u = store.base_rows, store.base_rows + store.delta_rows
+                idx = sample_index(u, min(u, TRAIT_SAMPLE_ROWS))
+                bits, wts = store.base.rows_at(idx[idx < nb])
                 bits = pad_words(bits, w_now)
                 if store._delta_bits is not None:
+                    rest = idx[idx >= nb] - nb
                     bits = np.concatenate(
-                        [bits, pad_words(store._delta_bits, w_now)])
-                    wts = np.concatenate([wts, store._delta_weights])
+                        [bits, pad_words(store._delta_bits[rest], w_now)])
+                    wts = np.concatenate([wts, store._delta_weights[rest]])
                 t = DatasetTraits.measure(bits, wts, store.vocab,
                                           store.n_rows)
-                u = store.base_rows + store.delta_rows
                 return _dc_replace(
                     t, nbytes=store.nbytes, n_unique=u,
                     dedup_ratio=(u / store.n_rows if store.n_rows else 1.0))

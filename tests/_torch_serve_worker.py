@@ -6,7 +6,7 @@ through a ``FileStore`` (never a fixed TCP port), builds a ``(world, 1)``
 mesh, runs ``serve`` on the same inputs and in the same order as every
 other rank (the mesh path is SPMD), and pickles what it saw to
 ``out_dir/rank<r>.pkl`` (a traceback to ``rank<r>.err`` on failure, then a
-non-zero exit).  Imports the port only, so a rank starts without JAX.
+non-zero exit).  ``rules`` then runs the rule server over the same mesh.  Imports the port only, so a rank starts without JAX.
 """
 import datetime
 import os
@@ -31,6 +31,7 @@ def run(rank: int, world: int, store: str, payload_path: str,
 
             mesh = make_host_mesh(world, 1, device_type="cpu")
             out = serve(mesh, payload, world)
+            out["rules"] = rules(mesh, payload["rules"])
         finally:
             dist.destroy_process_group()
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -114,4 +115,32 @@ def serve(mesh, p, world):
         out["async"] = asrv.submit_async("a", p["requests"][0]).result(30)
     finally:
         asrv.close()
+    return out
+
+
+def rules(mesh, r):
+    """The rule server over a sharded server on the mesh, through the
+    reference's mesh battery: per round (the initial rows and two appends
+    that widen the vocab), the complete rule list of ``top_rules``, its
+    optimal set and ``rules_for`` of its antecedents, as tuples."""
+    from dataclasses import astuple
+
+    from repro_torch.serve import CountServer, RuleServer
+
+    ruler = RuleServer(CountServer(r["tx"], classes=r["y"], n_classes=2,
+                                   shards=r["n_shards"], mesh=mesh,
+                                   device="cpu"))
+    out = []
+    for rnd in range(len(r["batches"]) + 1):
+        top = ruler.top_rules(r["theta"], r["min_conf"])
+        out.append({
+            "top": [astuple(x) for x in top],
+            "optimal": [astuple(x) for x in ruler.top_rules(
+                r["theta"], r["min_conf"], optimal=True)],
+            "rules_for": [astuple(x) for x in ruler.rules_for(
+                [x.antecedent for x in top], min_conf=r["min_conf"])],
+            "launches": ruler.server.store.kernel_launches,
+        })
+        if rnd < len(r["batches"]):
+            ruler.append(r["batches"][rnd], classes=r["batch_y"][rnd])
     return out

@@ -23,6 +23,7 @@ from repro_torch.core.gfp import gfp_growth
 from repro_torch.core.incremental import ceil_count
 from repro_torch.core.tis import TISTree
 from repro_torch.mining import MiningCheckpoint
+from repro_torch.mining.chooser import TRAIT_SAMPLE_ROWS, sample_index
 from repro_torch.roofline import autotune as at
 
 CPU = torch.device("cpu")
@@ -494,3 +495,80 @@ def test_gfp_checkpoint_resumes_mid_flush_across_packages(tmp_path, writer):
     resumed = []
     assert resume(on_chunk=lambda l, c: resumed.append((l, c))) == want
     assert resumed[0] == (2, 2)
+
+
+# ------------------------------------ the strided trait sample (ROADMAP §3.3)
+def _bernoulli_bits(n, m, p_x, p_y, seed):
+    """The §4.3 Bernoulli model packed straight in numpy (item c at bit c,
+    one-hot class weights), then deduplicated by the JAX package's
+    ``dedup_rows``: rows sorted, as every encode returns them."""
+    from repro.mining.encode import dedup_rows
+
+    rng = np.random.default_rng(seed)
+    mat = rng.random((n, m)) < p_x
+    y = (rng.random(n) < p_y).astype(np.int64)
+    bits = np.zeros((n, -(-m // 32)), np.uint32)
+    for c in range(m):
+        bits[:, c >> 5] |= mat[:, c].astype(np.uint32) << np.uint32(c & 31)
+    w = np.zeros((n, 2), np.int32)
+    w[np.arange(n), y] = 1
+    return dedup_rows(bits, w)
+
+
+def test_strided_sample_above_4096_rows_differs_from_jax_head_sample():
+    """A deliberate difference: over 4,096 unique rows the port measures
+    ``TRAIT_SAMPLE_ROWS`` rows spread evenly over all of them; the JAX
+    package measures the first 4,096, which ``dedup_rows`` sorted.  Each
+    package's traits are pinned to what the JAX package measures on that
+    package's sample."""
+    bits, w = _bernoulli_bits(9000, 40, 0.3, 0.2, seed=5)
+    u = bits.shape[0]
+    assert u > TRAIT_SAMPLE_ROWS
+    vocab = tm.ItemVocab(tuple(range(40)))
+    jvocab = jm.ItemVocab(tuple(range(40)))
+    got = tm.DatasetTraits.measure(bits, w, vocab, 9000)
+    want_head = jm.DatasetTraits.measure(bits, w, jvocab, 9000)
+    idx = (np.arange(4096) * u) // 4096
+    assert np.array_equal(idx, sample_index(u, 4096))
+    assert idx[0] == 0 and idx[-1] >= u - u // 4096 - 1
+    strided = jm.DatasetTraits.measure(bits[idx], w[idx], jvocab, 9000)
+    assert (got.density, got.skew) == (strided.density, strided.skew)
+    assert (got.n_unique, got.nbytes, got.dedup_ratio) \
+        == (want_head.n_unique, want_head.nbytes, want_head.dedup_ratio)
+    head = jm.DatasetTraits.measure(bits[:4096], w[:4096], jvocab, 9000)
+    assert (want_head.density, want_head.skew) == (head.density, head.skew)
+    assert got.density != want_head.density
+    # at most 4,096 unique rows the sample is every row: the same traits
+    small = jm.DatasetTraits.measure(bits[:4096], w[:4096], jvocab, 9000)
+    assert tuple(vars(tm.DatasetTraits.measure(
+        bits[:4096], w[:4096], vocab, 9000)).values()) \
+        == tuple(vars(small).values())
+
+
+def test_bernoulli_main_path_model_measures_p_x_and_goes_dense():
+    """The main path's §4.3 model (60 items, p_x = 0.125, p_y = 0.01) at
+    20,000 rows through the port's encode: density within 0.01 of p_x,
+    verdict ``dense``."""
+    from repro_torch.data import bernoulli_db
+
+    tx, y = bernoulli_db(20_000, 60, 0.125, 0.01, 0)
+    db = tm.DenseDB.encode(tx, classes=y, n_classes=2, device=CPU)
+    t = tm.DatasetTraits.of_db(db)
+    assert t.n_unique > TRAIT_SAMPLE_ROWS
+    assert abs(t.density - 0.125) < 0.01
+    assert tm.choose_backend(t).name == "dense"
+
+
+def test_main_path_shape_verdict_differs_from_jax():
+    """The 1,000,000-row main-path DB (packed in numpy): the JAX package's
+    sorted head sample reads a low density and an infinite skew and picks
+    ``gfp``; the port's strided sample reads p_x and picks ``dense``."""
+    bits, w = _bernoulli_bits(1_000_000, 60, 0.125, 0.01, seed=0)
+    vocab = tm.ItemVocab(tuple(range(60)))
+    jvocab = jm.ItemVocab(tuple(range(60)))
+    t = tm.DatasetTraits.measure(bits, w, vocab, 1_000_000)
+    jt = jm.DatasetTraits.measure(bits, w, jvocab, 1_000_000)
+    assert abs(t.density - 0.125) < 0.01 and t.skew < 2.0
+    assert jt.density < 0.1 and jt.skew == float("inf")
+    assert tm.choose_backend(t).name == "dense"
+    assert jm.choose_backend(jt).name == "gfp"

@@ -312,3 +312,31 @@ def test_mra_encode_matches_jax_encoding(name):
                               device=CPU)
     assert isinstance(sdb, tm.StreamingDB) and sdb.chunk_rows == 128
     assert sdb.bits.tobytes() == np.asarray(jdb.bits).tobytes()
+
+
+_GEN_ITEMS = {"ints": list(range(14)),
+              "strings": [f"i{j}" for j in range(14)],
+              "mixed": [1, "1", 2, "b", 3.5, 10, "10", (1, 2), "a", 0]}
+
+
+@pytest.mark.parametrize("items", sorted(_GEN_ITEMS))
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_apriori_gen_prefix_join_matches_jax(items, k):
+    """The port's candidate generator joins k-sets within prefix groups
+    (the JAX package's joins every pair): the same candidates, in the same
+    order, on random frequent families of every density."""
+    import itertools
+
+    from repro.core.apriori import apriori_gen as jax_apriori_gen
+    from repro_torch.core.apriori import apriori_gen
+
+    rng = np.random.default_rng(k)
+    pool = list(itertools.combinations(_GEN_ITEMS[items], k))
+    for size in (0, 1, 5, 30, len(pool) // 2, len(pool)):
+        pick = rng.permutation(len(pool))[:size]
+        fam = {frozenset(pool[i]) for i in pick}
+        got = apriori_gen(fam, k)
+        assert got == jax_apriori_gen(fam, k), (size, k)
+        if size == len(pool):
+            assert len(got) == len(list(itertools.combinations(
+                _GEN_ITEMS[items], k + 1)))

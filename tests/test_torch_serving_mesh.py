@@ -5,7 +5,9 @@ mesh path is SPMD).  ``ShardedDB(mesh=)`` and ``CountServer(shards=,
 mesh=)`` on every rank equal the JAX package's on its in-process mesh,
 integer for integer, before and after appends that widen W; one all-reduce
 per flush; each rank holds only its block of rows; ``async_flush`` is
-refused over more than one rank and works on one.
+refused over more than one rank and works on one.  The rule server over
+the sharded mesh server equals the JAX package's host oracle (the
+reference's slow mesh rule case).
 
 One module fixture spawns the three groups at once, each rendezvousing
 through a ``FileStore`` under the test's temporary directory, with a
@@ -40,10 +42,31 @@ def _problem():
     batch_y = [[int(rng.random() < 0.4) for _ in b] for b in batches]
     probes = [(0, 1), (2,), (3, 7, 39), (11,), ("nope",)]
     return dict(tx=tx, y=y, batches=batches, batch_y=batch_y, probes=probes,
+                rules=_rules_problem(),
                 probes_after=probes + [(41,), (0, 45), (95,), (2, 99)],
                 requests=[[(0, 1), (2,), (1, 0)], [(0, 1), (5, 6, 7)],
                           [(39,), ("nope",)]],
                 n_shards=N_SHARDS, theta=0.15)
+
+
+def _rules_problem():
+    """The reference's slow mesh rule case (``tests/test_rule_serving.py``):
+    300 rows of 24 items, two appends of 120 rows widening to 28 and 32
+    items, theta 0.04, min_conf 0.36, four shards."""
+    rng = np.random.default_rng(61)
+
+    def db(rows, items, p=0.3):
+        return [[int(a) for a in range(items) if rng.random() < p]
+                for _ in range(rows)]
+
+    tx = db(300, 24)
+    y = [int(rng.random() < 0.35) for _ in tx]
+    batches, batch_y = [], []
+    for rnd in range(2):
+        batches.append(db(120, 24 + 4 * rnd))
+        batch_y.append([int(rng.random() < 0.35) for _ in batches[-1]])
+    return dict(tx=tx, y=y, batches=batches, batch_y=batch_y, theta=0.04,
+                min_conf=0.36, n_shards=4)
 
 
 @pytest.fixture(scope="module")
@@ -183,3 +206,35 @@ def test_async_flush_refused_over_more_than_one_rank(runs, jax_results,
                                           jax_results["flush"][0])
         else:
             assert "async_flush over a mesh" in o["async_refused"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_rule_server_over_the_mesh_matches_host_oracle(runs, world):
+    """The reference's slow mesh rule case on gloo meshes: every round's
+    ``top_rules``, optimal set and ``rules_for`` equal the JAX package's
+    host ``minority_report`` / ``optimal_rule_set`` field for field, on
+    every rank."""
+    from dataclasses import astuple
+
+    from repro.core import minority_report, optimal_rule_set
+
+    r = runs["p"]["rules"]
+    hist, ys = [list(t) for t in r["tx"]], list(r["y"])
+    want = []
+    for rnd in range(3):
+        res = minority_report(hist, ys, target_class=1,
+                              min_support=r["theta"],
+                              min_confidence=r["min_conf"])
+        assert res.rules, "oracle mined no rules"
+        want.append(([astuple(x) for x in res.rules],
+                     [astuple(x) for x in optimal_rule_set(res.rules)]))
+        if rnd < 2:
+            hist += [list(t) for t in r["batches"][rnd]]
+            ys += r["batch_y"][rnd]
+    for o in runs["out"][world]:
+        assert len(o["rules"]) == 3
+        for got, (top, optimal) in zip(o["rules"], want):
+            assert got["top"] == top
+            assert got["optimal"] == optimal
+            assert got["rules_for"] == top
+        assert o["rules"][-1]["launches"] > 0

@@ -27,8 +27,8 @@ from repro.kernels.itemset_count import itemset_counts_ref as jax_counts_ref
 from repro.mining.distributed import MiningCheckpoint as JaxCheckpoint
 from repro_torch import mining as tm
 from repro_torch.mining import MiningCheckpoint, mine_frequent_backend
-from repro_torch.mining.chooser import (DatasetTraits, backend_for_db,
-                                        choose_backend)
+from repro_torch.mining.chooser import (TRAIT_SAMPLE_ROWS, DatasetTraits,
+                                        backend_for_db, choose_backend)
 from repro_torch.mining.spill import (MANIFEST_NAME, SpilledBackend,
                                       SpilledDB, spilled_counts)
 from repro_torch.obs import REGISTRY, counter_total
@@ -87,9 +87,11 @@ def test_spill_roundtrip_and_manifest_facts(tmp_path):
     # materialization reproduces the host arrays
     np.testing.assert_array_equal(db.bits, tx)
     np.testing.assert_array_equal(db.weights, wts)
-    hb, hw = db.head(10)
-    np.testing.assert_array_equal(hb, tx[:10])
-    np.testing.assert_array_equal(hw, wts[:10])
+    # the trait-sampling hook: rows spread over every segment
+    hb, hw = db.rows_at(np.arange(0, 300, 30))
+    np.testing.assert_array_equal(hb, tx[::30])
+    np.testing.assert_array_equal(hw, wts[::30])
+    np.testing.assert_array_equal(db.rows_at(np.arange(300))[0], tx)
 
     # reopen from the manifest: same grid, same counts
     re = SpilledDB.open(str(tmp_path), device=CPU)
@@ -280,10 +282,17 @@ def test_spilled_backend_mine_matches_host(tmp_path):
     assert backend.chunk_signature()["backend"] == "spilled"
     got = mine_frequent_backend(backend, 40)
     assert got == want == jm.mine_frequent_backend(jbackend, 40)
-    # traits report the TRUE on-disk footprint, not the head sample's
+    # traits report the TRUE on-disk footprint, not the sample's
     t = backend.traits()
     assert t.nbytes == spl.nbytes and t.n_unique == spl.n_unique
-    assert tuple(vars(t).values()) == tuple(vars(jbackend.traits()).values())
+    # a deliberate difference: the port samples rows over every segment
+    # (all 200 here, so its traits are the whole DB's); the JAX package
+    # measures the head segment's 16 rows only
+    assert t == DatasetTraits.of_db(sdb)
+    jt = jbackend.traits()
+    seg0 = DatasetTraits.measure(*spl.segment(0), spl.vocab, spl.n_rows)
+    assert (jt.density, jt.skew) == (seg0.density, seg0.skew) \
+        != (t.density, t.skew)
 
 
 def test_chooser_spill_verdict_and_backend_for_db(tmp_path, monkeypatch):
@@ -515,3 +524,124 @@ def test_cuda_spilled_sweep_matches_plain_version(tmp_path, prefetch):
     resumed = spilled_counts(db, tgt, prefetch=prefetch, start_chunk=5,
                              init=seen[4])
     np.testing.assert_array_equal(resumed.cpu().numpy(), want)
+
+
+# ----------------------------------- the interrupted re-spill (ROADMAP §3.4)
+class _Killed(Exception):
+    pass
+
+
+def _kill_after(monkeypatch, module, saves):
+    """Make ``module``'s segment writer die after ``saves`` files: a spill
+    killed part way through its segments."""
+    real = module._atomic_save
+    done = [0]
+
+    def save(path, arr):
+        if done[0] == saves:
+            raise _Killed(path)
+        real(path, arr)
+        done[0] += 1
+
+    monkeypatch.setattr(module, "_atomic_save", save)
+
+
+def test_interrupted_respill_is_refused_by_open(tmp_path, monkeypatch):
+    """Spill A (4,096 rows in four 1,024-row segments), then spill B of the
+    same shape into the same directory and kill it after B's first
+    segment.  The JAX package still opens the directory and counts a mix
+    of B's segment 0 and A's segments 1-3; the port removed A's manifest
+    before writing, so its ``open`` refuses the directory (a deliberate
+    difference), and a finished re-spill opens as B."""
+    import repro.mining.spill as jspill
+    import repro_torch.mining.spill as tspill
+
+    rng = np.random.default_rng(21)
+    a_tx, tgt, a_w = _random_problem(rng, 4096, 9, 2, 2)
+    b_tx, _, b_w = _random_problem(rng, 4096, 9, 2, 2)
+    vocab, jvocab = tm.ItemVocab(tuple(range(64))), jm.ItemVocab(
+        tuple(range(64)))
+    want_a, want_b = _ref(a_tx, tgt, a_w), _ref(b_tx, tgt, b_w)
+    mixed = _ref(np.concatenate([b_tx[:1024], a_tx[1024:]]), tgt,
+                 np.concatenate([b_w[:1024], a_w[1024:]]))
+    assert not np.array_equal(mixed, want_a)
+    assert not np.array_equal(mixed, want_b)
+
+    # the JAX package: the torn store opens and miscounts
+    jdir = str(tmp_path / "jax")
+    jm.SpilledDB.spill(jvocab, a_tx, a_w, 4096, 2, jdir, chunk_rows=1024)
+    with monkeypatch.context() as m:
+        _kill_after(m, jspill, 2)
+        with pytest.raises(_Killed):
+            jm.SpilledDB.spill(jvocab, b_tx, b_w, 4096, 2, jdir,
+                               chunk_rows=1024)
+    torn = jm.SpilledDB.open(jdir)
+    np.testing.assert_array_equal(np.asarray(jm.spilled_counts(torn, tgt)),
+                                  mixed)
+
+    # the port: no manifest survives the interrupted re-spill
+    tdir = str(tmp_path / "torch")
+    SpilledDB.spill(vocab, a_tx, a_w, 4096, 2, tdir, chunk_rows=1024,
+                    device=CPU)
+    with monkeypatch.context() as m:
+        _kill_after(m, tspill, 2)
+        with pytest.raises(_Killed):
+            SpilledDB.spill(vocab, b_tx, b_w, 4096, 2, tdir,
+                            chunk_rows=1024, device=CPU)
+    assert not os.path.exists(os.path.join(tdir, MANIFEST_NAME))
+    with pytest.raises(FileNotFoundError):
+        SpilledDB.open(tdir, device=CPU)
+    # a re-spill that finishes is B, byte for byte the JAX package's B
+    SpilledDB.spill(vocab, b_tx, b_w, 4096, 2, tdir, chunk_rows=1024,
+                    device=CPU)
+    re = SpilledDB.open(tdir, device=CPU)
+    np.testing.assert_array_equal(_np(re.counts(tgt)), want_b)
+    jm.SpilledDB.spill(jvocab, b_tx, b_w, 4096, 2, jdir, chunk_rows=1024)
+    for name in sorted(os.listdir(tdir)):
+        assert (tmp_path / "torch" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+
+
+def test_open_checks_the_weights_files_rows(tmp_path):
+    """A weights file whose row count disagrees with the manifest: the
+    port's ``open`` refuses it; the JAX package's checks the bits files
+    only and opens it (a deliberate difference)."""
+    db, _, _, _ = _spill_problem(tmp_path / "s", chunk=64)
+    wp = os.path.join(db.directory, "seg00001.w.npy")
+    np.save(wp, np.load(wp)[:10])
+    with pytest.raises(ValueError, match="seg00001.w.npy: manifest says 64"):
+        SpilledDB.open(db.directory, device=CPU)
+    assert jm.SpilledDB.open(db.directory).seg_rows == db.seg_rows
+
+
+def test_spilled_store_traits_sample_every_segment(tmp_path):
+    """A spilled ``VersionedDB`` base of 6,000 unique rows in 1,000-row
+    segments plus a delta: the traits the count server's chooser reads are
+    measured on rows spread over every segment and the delta — the same
+    traits as the same rows in a dense store — where the JAX package's
+    sample the head segment."""
+    import repro.serve as js
+    from repro_torch.serve import VersionedCountBackend, VersionedDB
+
+    rng = np.random.default_rng(17)
+    tx = _db(rng, 6000, 40, p=0.3)
+    extra = _db(rng, 300, 44, p=0.3)
+    kw = dict(classes=[int(rng.random() < 0.2) for _ in tx], n_classes=2,
+              merge_ratio=1e9, device="cpu")
+    spilled = VersionedDB(tx, chunk_rows=1000, spill_dir=str(tmp_path),
+                          spill_threshold_bytes=0, **kw)
+    dense = VersionedDB(tx, **kw)
+    assert spilled.resident == "spilled" and spilled.base.n_chunks == 6
+    assert spilled.base_rows > TRAIT_SAMPLE_ROWS
+    for store in (spilled, dense):
+        store.append(extra, classes=[0] * len(extra))
+    got = VersionedCountBackend(spilled).traits()
+    assert got == VersionedCountBackend(dense).traits()
+    jstore = js.VersionedDB(tx, chunk_rows=1000,
+                            spill_dir=str(tmp_path / "j"),
+                            spill_threshold_bytes=0, classes=kw["classes"],
+                            n_classes=2, merge_ratio=1e9)
+    jstore.append(extra, classes=[0] * len(extra))
+    jt = js.VersionedCountBackend(jstore).traits()
+    assert (jt.n_unique, jt.nbytes) == (got.n_unique, got.nbytes)
+    assert jt.density != got.density
