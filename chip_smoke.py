@@ -159,11 +159,29 @@ phase, and fail on the first phase that fails.
     a one-rank NCCL group; each must exit 0 with its verified lines; its
     wall seconds and the wrapper's launch counters from its output.
 
+16. The model zoo's serving path (``repro_torch.models``,
+    ``repro_torch.launch.serve``; plain PyTorch, no kernel of this repo).
+    (a) Every arch at its reduced config in float32: the port on the card
+    against the port on the CPU, weights from one CPU generator copied
+    across: forward logits, prefill's logits and cache, 4 decode steps,
+    ``rtol = atol = 1e-4`` (TF32 off).  (b) qwen3-8b at full width and
+    depth in bf16 (36 layers, 8.19e9 parameters): ``python -m
+    repro_torch.launch.serve --arch qwen3-8b`` (batch 4, prompt 32, gen 16)
+    run in-process twice from seed 0 (the same greedy tokens), then a batch
+    4 x 2,048 prefill (4 q-blocks of 512) and 31 greedy decode steps into a
+    4 x 2,080 cache.  (c) mamba2-2.7b at full width and depth in bf16 (64
+    layers): the launcher with a 512-token prompt (2 SSD chunks of 256) and
+    16 decode steps, twice.  In (b) and (c) the logits of prefill and of
+    every decode step are held against ``forward`` over the whole sequence:
+    the relative L2 error of each row over the real vocabulary at most
+    ``_bf16_tol(layers)``.  Prefill and decode times, tokens/s and
+    ``torch.cuda.max_memory_allocated`` against the weights and the cache.
+
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
 spilled path, on each rank of each mesh, and on the count server's, the
 rule server's and the launcher's paths counted apart in
-``launches_by_path``) and
+``launches_by_path``), phase 16's ``models`` record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -193,6 +211,21 @@ SPILL_DB = dict(n=136_000_000, items=60, p_y=0.01, seed=0)
 SPILL_PAIRS = ((0, 1), (17, 42), (31, 32), (58, 59))   # the numpy check
 MESH_JOIN_S = 300
 MESH_KILL = (3, 3)      # the two-rank chunked mine stops after this chunk
+# Phase 16's tolerances.  float32 on the card against float32 on the CPU:
+# the same operations, summed in another order.  bf16 prefill and decode
+# against a bf16 forward over the whole sequence, as the relative L2 error
+# of each logits row: every product and activation is rounded to 8
+# significant bits (2^-8) at other places in the two paths (other shapes,
+# other cuBLAS tiles, the SSD state carried step by step in bf16), a few
+# roundings a layer (2^-6), and independent layers add in quadrature
+# (sqrt(layers)): 0.094 at qwen3-8b's 36 layers, 0.125 at mamba2-2.7b's 64.
+# (A 64-layer mamba2 of width 512 on the CPU showed 0.067.)  A wrong
+# position, mask or state is an error of order 1.
+ZOO_F32_TOL = 1e-4
+
+
+def _bf16_tol(n_layers):
+    return 2.0 ** -6 * n_layers ** 0.5
 
 
 def _phase(name):
@@ -1936,9 +1969,268 @@ def _rule_server(dev, tx_rows, y, main_rules, launch_rows=LAUNCH_ROWS):
     return launches
 
 
+def _rel_rows(got, want, vocab):
+    """(max over rows of |got - want|_2 / |want|_2, max |got - want|) over
+    the real vocabulary, in float32."""
+    g = got[..., :vocab].float()
+    w = want[..., :vocab].float()
+    rel = (g - w).norm(dim=-1) / w.norm(dim=-1)
+    return float(rel.max()), float((g - w).abs().max())
+
+
+def _zoo_reduced(dev):
+    """Phase 16 (a): every arch, reduced, float32, card against host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    errs = {}
+    for arch in sorted(ARCHS):
+        cpu = get_model(arch, reduced=True, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        gpu = get_model(arch, reduced=True, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        cfg = cpu.cfg
+        rng = np.random.default_rng(0)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)))
+        frames = None
+        if cfg.encdec:
+            frames = torch.as_tensor(
+                rng.normal(size=(2, 36, cfg.frontend_dim)), dtype=torch.float32)
+        pairs = [("forward", gpu.forward(toks, frames=frames),
+                  cpu.forward(toks, frames=frames))]
+        lg, cg = gpu.prefill(toks[:, :32], 36, frames=frames)
+        lc, cc = cpu.prefill(toks[:, :32], 36, frames=frames)
+        pairs.append(("prefill", lg, lc))
+        for i, (a, b) in enumerate(zip(cg["layers"], cc["layers"])):
+            pairs += [(f"cache {i}.{k}", a[k], b[k]) for k in b]
+        if cfg.encdec:
+            pairs += [(f"cache {k} {i}", cg[k][i], cc[k][i])
+                      for k in ("enc_k", "enc_v") for i in range(cfg.n_layers)]
+        for step in range(4):
+            pos = 32 + step
+            lg, cg = gpu.decode_step(cg, toks[:, pos:pos + 1], pos)
+            lc, cc = cpu.decode_step(cc, toks[:, pos:pos + 1], pos)
+            pairs.append((f"decode {step}", lg, lc))
+        err = 0.0
+        for what, a, b in pairs:
+            a = a.cpu()
+            torch.testing.assert_close(a, b, rtol=ZOO_F32_TOL,
+                                       atol=ZOO_F32_TOL,
+                                       msg=lambda m: f"{arch} {what}: {m}")
+            err = max(err, float((a - b).abs().max()))
+        errs[arch] = err
+        print(f"   (a) {arch:28s} reduced float32, card == host within "
+              f"{ZOO_F32_TOL:g}: {len(pairs)} tensors, max |err| {err:.3e}",
+              flush=True)
+    return errs
+
+
+def _f32_reference(model, prompts, o, tol, smi):
+    """The bf16 launcher run against a float32 copy of its weights: bf16
+    ``forward`` and bf16 prefill/decode, each against the float32
+    ``forward`` over the same sequence (relative L2 per row); the first
+    says how far bf16 alone moves the logits."""
+    import torch
+
+    from repro_torch.models import get_model
+
+    cfg = model.cfg
+    seq = torch.cat([prompts, o.tokens[:, :-1]], dim=1)
+    ref = get_model(cfg.name, device=model.device, dtype="float32")
+    ref.load_state_dict(model.state_dict())
+    want = ref.forward(seq)[:, prompts.shape[1] - 1:]
+    del ref
+    fwd = model.forward(seq)[:, prompts.shape[1] - 1:]
+    rel_fwd, _ = _rel_rows(fwd, want, cfg.vocab_size)
+    rel_dec, mx = _rel_rows(o.logits, want, cfg.vocab_size)
+    del want, fwd
+    torch.cuda.empty_cache()
+    if rel_dec > tol:
+        raise AssertionError(f"{cfg.name}: bf16 prefill/decode differ from "
+                             f"the float32 forward by {rel_dec:.4f} > {tol:.4f}")
+    print(f"   against a float32 copy of the weights: bf16 forward max "
+          f"relative L2 {rel_fwd:.4e}, bf16 prefill/decode {rel_dec:.4e} "
+          f"(max |err| {mx:.4f}) [{smi}]", flush=True)
+    return {"bf16_forward_rel": rel_fwd, "bf16_decode_rel": rel_dec}
+
+
+def _decode_trace(model, prompts, steps, arch, smi):
+    """A ``torch.profiler`` trace of ``steps`` decode steps after a prefill
+    of ``prompts`` (one warm step first): kernels a step, device busy ms a
+    step and the device's idle share of the traced span.  The profiler's
+    own host cost is in the span, so the idle share is an upper bound."""
+    import torch
+    s = prompts.shape[1]
+    _, cache = model.prefill(prompts, s + steps + 1)
+    tok = prompts[:, -1:]
+    model.decode_step(cache, tok, s)
+    torch.cuda.synchronize()
+    trace = ROOT / "build" / "traces" / f"decode_{arch}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            model.decode_step(cache, tok, s + 1 + i)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    kern, _ = _device_intervals(trace)
+    if not kern:
+        raise AssertionError(f"{arch}: the decode trace holds no kernel")
+    busy = _length(_union(kern)) / 1e3
+    span = (max(e for _, e in kern) - min(b for b, _ in kern)) / 1e3
+    out = {"kernels_per_step": len(kern) / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "traced_span_ms_per_step": span / steps,
+           "idle_share": 1.0 - busy / span}
+    print(f"   decode trace ({steps} steps, {trace.relative_to(ROOT)}): "
+          f"{out['kernels_per_step']:.1f} kernels a step, device busy "
+          f"{out['device_busy_ms_per_step']:.3f} ms of "
+          f"{out['traced_span_ms_per_step']:.3f} ms a step, idle share "
+          f"{out['idle_share']:.3f} [{smi}]", flush=True)
+    del cache
+    return out
+
+
+def _zoo_full(dev, smi, arch, argv, long_prompt):
+    """Phase 16 (b) / (c): one arch at full width and depth in bf16 through
+    the launcher twice, then (b) a long prefill; each checked against
+    ``forward`` over the whole sequence."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    argv = ["--arch", arch, "--device", "cuda"] + argv
+    print(f"   python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    run = serve.main(argv)
+    model, cfg, out = run.model, run.model.cfg, run.out
+    peak_launch = torch.cuda.max_memory_allocated()
+    n_params = model.n_params()
+    weights_b = sum(p.numel() * p.element_size() for p in model.parameters())
+    if weights_b != n_params * 2 or model.dtype != torch.bfloat16:
+        raise AssertionError(f"{arch}: {weights_b} bytes of weights for "
+                             f"{n_params} bf16 parameters")
+    b, s = run.prompts.shape
+    gen = out.tokens.shape[1]
+    tol = _bf16_tol(cfg.n_layers)
+
+    def cache_bytes(batch, max_len):
+        c = model.init_cache(batch, max_len)
+        n = sum(t.numel() * t.element_size() for lc in c["layers"]
+                for t in lc.values())
+        del c
+        return n
+
+    def check(prompts, o, label):
+        seq = torch.cat([prompts, o.tokens[:, :-1]], dim=1)
+        full = model.forward(seq)
+        got = o.logits
+        want = full[:, prompts.shape[1] - 1:]
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{arch} {label}: non-finite logits")
+        rel, mx = _rel_rows(got, want, cfg.vocab_size)
+        del full
+        if rel > tol:
+            raise AssertionError(f"{arch} {label}: prefill/decode logits "
+                                 f"differ from forward by {rel:.4f} > "
+                                 f"{tol:.4f} (relative L2)")
+        agree = float((o.tokens == want[..., :cfg.vocab_size].argmax(-1))
+                      .float().mean())
+        print(f"   {label}: prefill + {o.tokens.shape[1] - 1} decode steps vs "
+              f"forward over {seq.shape[1]} tokens: max relative L2 "
+              f"{rel:.4e} (tol {tol:.4f}), max |err| {mx:.4f}, greedy "
+              f"tokens equal to forward's argmax {agree:.3f}", flush=True)
+        return rel, mx
+
+    def timing(o, label, batch, prompt):
+        steps = o.tokens.shape[1] - 1
+        ms = o.decode_s * 1e3 / max(steps, 1)
+        tok_s = batch * steps / max(o.decode_s, 1e-9)
+        print(f"   {label}: prefill {batch}x{prompt} {o.prefill_s * 1e3:.3f}"
+              f" ms, decode {ms:.3f} ms/step over {steps} steps "
+              f"({tok_s:,.1f} tok/s) [{smi}]", flush=True)
+        return {"prefill_ms": o.prefill_s * 1e3, "decode_ms_per_step": ms,
+                "tok_s": tok_s}
+
+    rec = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": n_params, "dtype": cfg.dtype, "tol_bf16_rel_l2": tol,
+           "card": smi}
+    launch = {"batch": b, "prompt": s, "gen": gen}
+    launch.update(timing(out, "launcher run 1", b, s))
+    launch["max_rel_err"], launch["max_abs_err"] = check(run.prompts, out,
+                                                         "launcher run 1")
+    cache_b = cache_bytes(b, s + gen)
+    launch.update(peak_gib=peak_launch / 2**30, weights_gib=weights_b / 2**30,
+                  cache_gib=cache_b / 2**30)
+    print(f"   launcher run 1: peak allocated {peak_launch / 2**30:.3f} GiB; "
+          f"weights {weights_b / 2**30:.3f} GiB (n_params {n_params:,} x 2 "
+          f"bytes) + cache {cache_b / 2**30:.4f} GiB [{smi}]", flush=True)
+
+    launch["float32"] = _f32_reference(model, run.prompts, out, tol, smi)
+    launch["trace"] = _decode_trace(model, run.prompts, 8, arch, smi)
+
+    # the same seed again: the same weights, prompts and greedy tokens
+    run2 = serve.main(argv)
+    if not torch.equal(run2.out.tokens, out.tokens):
+        raise AssertionError(f"{arch}: two launcher runs from one seed gave "
+                             "different tokens")
+    launch["run2"] = timing(run2.out, "launcher run 2 (same tokens)", b, s)
+    del run2
+    torch.cuda.empty_cache()
+    rec["launcher"] = launch
+
+    if long_prompt:
+        lp, lgen = long_prompt
+        rng = np.random.default_rng(1)
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, lp)),
+                                  device=model.device)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        o = serve.generate(model, prompts, lgen)
+        peak = torch.cuda.max_memory_allocated()
+        long = {"batch": b, "prompt": lp, "gen": lgen}
+        long.update(timing(o, "long prompt", b, lp))
+        cb = cache_bytes(b, lp + lgen)
+        long.update(peak_gib=peak / 2**30, cache_gib=cb / 2**30,
+                    max_len=lp + lgen)
+        print(f"   long prompt: peak allocated {peak / 2**30:.3f} GiB (weights "
+              f"and buffers before it {base / 2**30:.3f} GiB; cache "
+              f"{b}x{lp + lgen} {cb / 2**30:.4f} GiB) [{smi}]",
+              flush=True)
+        long["max_rel_err"], long["max_abs_err"] = check(prompts, o,
+                                                         "long prompt")
+        rec["long"] = long
+        del o
+    rec["seconds"] = time.perf_counter() - t0
+    del run, model, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _fmt_ms(d):
     return ", ".join(f"{key} {v:.4f}" if v is not None else f"{key} -"
                      for key, v in d.items())
+
+
+def _model_zoo(dev, smi):
+    """Phase 16: (a) the reduced archs, (b) qwen3-8b, (c) mamba2-2.7b."""
+    reduced = _zoo_reduced(dev)
+    # (b): the JAX launcher's defaults, then 4 x 2,048 into a 4 x 2,080 cache
+    qwen = _zoo_full(dev, smi, "qwen3-8b", [], long_prompt=(2048, 32))
+    # (c): 2 SSD chunks of 256, then 16 decode steps
+    mamba = _zoo_full(dev, smi, "mamba2-2.7b",
+                      ["--prompt-len", "512", "--gen", "17"], long_prompt=None)
+    return {"reduced_float32_max_abs_err": reduced, "tol_float32": ZOO_F32_TOL,
+            "full": [qwen, mamba]}
 
 
 def main() -> int:
@@ -2729,6 +3021,14 @@ def main() -> int:
     rule = _rule_server(dev, tx_rows, y, dense.rules)
     _done(t0)
 
+    # ---- 16. the model zoo's serving path --------------------------------
+    t0 = _phase("16. model zoo serving path: 10 reduced archs (float32), "
+                "qwen3-8b and mamba2-2.7b at full size (bf16)")
+    print(f"   card: {smi}; allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    zoo = _model_zoo(dev, smi)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -2820,6 +3120,7 @@ def main() -> int:
     }]}
     print(smi)
     print(json.dumps(record))
+    print(json.dumps({"models": zoo}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

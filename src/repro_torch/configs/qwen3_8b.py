@@ -1,0 +1,10 @@
+"""qwen3-8b — dense, qk_norm, GQA.  [hf:Qwen/Qwen3-8B; hf]"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=12288, vocab_size=151936, qk_norm=True,
+    force_kv_seq_attn=True,  # adopted: EXPERIMENTS.md §Perf iters 4-5
+    source="hf:Qwen/Qwen3-8B",
+)

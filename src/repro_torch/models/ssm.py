@@ -1,0 +1,200 @@
+"""Mamba-2 SSD (state-space duality) layer: chunked, quadratic within a
+chunk and linear across chunks (arXiv:2405.21060), plus the O(1)-state
+decode (the JAX package's ``models/ssm.py``).
+
+Shapes: d_inner = expand * d_model, nh = d_inner / headdim heads, state N,
+g groups for B/C (expanded to heads).  The intra-chunk part is dense
+einsums; the inter-chunk recurrence, a ``lax.scan`` in the JAX package, is
+a loop over the chunks that keeps the state entering each chunk.  Plain
+PyTorch: no Pallas kernel lies on this path.
+
+Every exponent is of a cumulative sum of dt * A with A < 0, so it is at
+most 0: the exps underflow to 0 over a long chunk and never overflow.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .common import ParamSpec, rmsnorm
+
+
+def ssm_specs(cfg) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    di, n, g, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
+    w = cfg.conv_width
+    return {
+        "wz": ParamSpec((d, di), ("embed", "ssm_inner")),
+        "wx": ParamSpec((d, di), ("embed", "ssm_inner")),
+        "wB": ParamSpec((d, g, n), ("embed", None, "ssm_state")),
+        "wC": ParamSpec((d, g, n), ("embed", None, "ssm_state")),
+        "wdt": ParamSpec((d, nh), ("embed", "ssm_heads")),
+        "conv_x": ParamSpec((w, di), (None, "conv_chan")),
+        "conv_B": ParamSpec((w, g, n), (None, None, "ssm_state")),
+        "conv_C": ParamSpec((w, g, n), (None, None, "ssm_state")),
+        "dt_bias": ParamSpec((nh,), ("ssm_heads",), init="zeros"),
+        "A_log": ParamSpec((nh,), ("ssm_heads",), init="zeros"),
+        "D": ParamSpec((nh,), ("ssm_heads",), init="ones"),
+        "gate_norm": ParamSpec((di,), ("norm",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _proj_groups(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('...d,dgn->...gn', x, w)."""
+    d, g, n = w.shape
+    return (x @ w.reshape(d, g * n)).unflatten(-1, (g, n))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along axis 1.  x (B,S,C...), w (W,C...)."""
+    width, s = w.shape[0], x.shape[1]
+    out = x * w[-1]
+    for i in range(1, width):
+        shifted = torch.cat([x.new_zeros((x.shape[0], i) + x.shape[2:]), x],
+                            dim=1)[:, :s]
+        out = out + shifted * w[width - 1 - i]
+    return out
+
+
+def _conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor):
+    """Single-token causal conv.  state (B,W-1,C...), xt (B,C...)."""
+    hist = torch.cat([state, xt[:, None]], dim=1)                 # (B,W,C..)
+    y = torch.einsum("bw...,w...->b...", hist, w)
+    return hist[:, 1:], y
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """dA (..., Q, nh) -> decay matrix (..., nh, Q, Q): exp(sum_{j<i<=q} dA)."""
+    q = dA.shape[-2]
+    cs = torch.cumsum(dA, dim=-2)                                 # (..., Q, nh)
+    diff = cs[..., :, None, :] - cs[..., None, :, :]              # (..., Q, Q, nh)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dA.device))
+    diff = torch.movedim(diff, -1, -3)                            # (..., nh, Q, Q)
+    return torch.where(mask, torch.exp(diff), 0.0)
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int):
+    """Chunked SSD.  x (B,L,nh,P); dt (B,L,nh); A (nh,); B/C (B,L,nh,N)
+    (already head-expanded).  Returns y (B,L,nh,P) and the final state
+    (B,nh,N,P)."""
+    b, l, nh, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, l)
+    if l % q != 0:
+        q = l
+    nc = l // q
+
+    xr = x.reshape(b, nc, q, nh, p)
+    dtr = dt.reshape(b, nc, q, nh)
+    Br = B.reshape(b, nc, q, nh, n)
+    Cr = C.reshape(b, nc, q, nh, n)
+    dA = dtr * A[None, None, None, :]                             # (b,nc,q,nh)
+
+    xdt = xr * dtr[..., None]
+    Lmat = _segsum(dA.float()).to(x.dtype)                        # (b,nc,nh,q,q)
+    cb = torch.einsum("bcqhn,bckhn->bchqk", Cr, Br)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", cb * Lmat, xdt)
+
+    cs = torch.cumsum(dA.float(), dim=2)                          # (b,nc,q,nh)
+    decay_out = torch.exp(cs[:, :, -1:, :] - cs).to(x.dtype)      # (b,nc,q,nh)
+    states = torch.einsum("bcqhn,bcqhp->bchnp", Br * decay_out[..., None], xdt)
+    chunk_decay = torch.exp(cs[:, :, -1, :]).to(x.dtype)          # (b,nc,nh)
+
+    # the inter-chunk recurrence: keep the state ENTERING each chunk
+    s = x.new_zeros((b, nh, n, p))
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    s_in = torch.stack(s_in, dim=1)                               # (b,nc,nh,n,p)
+
+    decay_in = torch.exp(cs).to(x.dtype)                          # (b,nc,q,nh)
+    y_off = torch.einsum("bcqhn,bchnp->bcqhp", Cr * decay_in[..., None], s_in)
+    y = (y_diag + y_off).reshape(b, l, nh, p)
+    return y, s
+
+
+def _head_expand(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """(B,L,G,N) group tensor -> (B,L,nh,N) head tensor."""
+    return torch.repeat_interleave(t, nh // t.shape[2], dim=2)
+
+
+def _dt_and_A(p, dt: torch.Tensor, dtype: torch.dtype):
+    dt = F.softplus(dt.float() + p.dt_bias.float()).to(dtype)
+    A = (-torch.exp(p.A_log.float())).to(dtype)
+    return dt, A
+
+
+def ssm_forward(p, xin: torch.Tensor, cfg,
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                pos: Optional[int] = None):
+    """Full-sequence SSD (train/prefill).  xin (B,S,D) -> (B,S,D).
+    If ``state`` is given, behaves as a single-step decode (S == 1) and
+    returns (out, new state)."""
+    if state is not None:
+        return _ssm_decode(p, xin, cfg, state, pos)
+    b, s, d = xin.shape
+    nh, hd = cfg.ssm_heads, cfg.ssm_headdim
+
+    z = xin @ p.wz
+    x = xin @ p.wx
+    Bm = _proj_groups(xin, p.wB)
+    Cm = _proj_groups(xin, p.wC)
+    dt = xin @ p.wdt
+
+    x = F.silu(_causal_conv(x, p.conv_x))
+    Bm = F.silu(_causal_conv(Bm, p.conv_B))
+    Cm = F.silu(_causal_conv(Cm, p.conv_C))
+    dt, A = _dt_and_A(p, dt, xin.dtype)
+
+    xh = x.reshape(b, s, nh, hd)
+    y, _ = ssd_scan(xh, dt, A, _head_expand(Bm, nh), _head_expand(Cm, nh),
+                    cfg.ssm_chunk)
+    y = y + p.D[None, None, :, None] * xh
+    y = y.reshape(b, s, nh * hd)
+    y = rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
+    return (y.reshape(b * s, nh * hd) @ p.out_proj).reshape(b, s, d)
+
+
+def init_state(cfg, batch: int, dtype: torch.dtype,
+               device) -> Dict[str, torch.Tensor]:
+    """One SSM layer's zeroed decode state."""
+    nh, hd, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    g, w, di = cfg.ssm_groups, cfg.conv_width, cfg.d_inner
+    shapes = {"ssd": (batch, nh, n, hd), "conv_x": (batch, w - 1, di),
+              "conv_B": (batch, w - 1, g, n), "conv_C": (batch, w - 1, g, n)}
+    return {k: torch.zeros(v, dtype=dtype, device=device)
+            for k, v in shapes.items()}
+
+
+def _ssm_decode(p, xin, cfg, state, pos):
+    """Single-token SSD decode.  xin (B,1,D)."""
+    b = xin.shape[0]
+    nh, hd = cfg.ssm_heads, cfg.ssm_headdim
+    xt = xin[:, 0]
+    z = xt @ p.wz
+    x = xt @ p.wx
+    Bm = _proj_groups(xt, p.wB)
+    Cm = _proj_groups(xt, p.wC)
+    dt = xt @ p.wdt
+
+    cx, x = _conv_step(state["conv_x"], x, p.conv_x)
+    cB, Bm = _conv_step(state["conv_B"], Bm, p.conv_B)
+    cC, Cm = _conv_step(state["conv_C"], Cm, p.conv_C)
+    x, Bm, Cm = F.silu(x), F.silu(Bm), F.silu(Cm)
+    dt, A = _dt_and_A(p, dt, xin.dtype)
+
+    xh = x.reshape(b, nh, hd)
+    Bh = torch.repeat_interleave(Bm, nh // cfg.ssm_groups, dim=1)   # (B,nh,N)
+    Ch = torch.repeat_interleave(Cm, nh // cfg.ssm_groups, dim=1)
+    decay = torch.exp(dt * A[None, :])                             # (B,nh)
+    s_new = (state["ssd"] * decay[..., None, None] +
+             torch.einsum("bhn,bhp->bhnp", Bh, xh * dt[..., None]))
+    y = torch.einsum("bhn,bhnp->bhp", Ch, s_new) + p.D[None, :, None] * xh
+    y = y.reshape(b, nh * hd)
+    y = rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
+    out = (y @ p.out_proj)[:, None, :]
+    return out, {"ssd": s_new, "conv_x": cx, "conv_B": cB, "conv_C": cC}
