@@ -177,18 +177,47 @@ phase, and fail on the first phase that fails.
     ``_bf16_tol(layers)``.  Prefill and decode times, tokens/s and
     ``torch.cuda.max_memory_allocated`` against the weights and the cache.
 
+17. The training path (``repro_torch.train``, ``checkpoint``, ``data``,
+    ``launch.train``; plain PyTorch, no kernel of this repo).  (a) Every
+    arch at its reduced config in float32: one ``train_step`` on the card
+    against the same step on the host from the same weights and batch
+    (loss, ``grad_norm``, every gradient within 1e-4 of its parameter's
+    largest entry), then AdamW on the host from the card's gradients
+    against the card's update (float32 rounding).  (b) Reduced qwen3-8b,
+    15 steps: the loss falls by 0.1.  (c) 4 microbatches equal 1.  (d)
+    Under ``torch.use_deterministic_algorithms``: save at step 3, restore,
+    steps 3-5, bit for bit, every reduced arch in float32 and qwen3-8b in
+    bf16 (an arch that runs an op with no deterministic CUDA version is
+    named and not restarted; qwen3-8b must restart).  (e) ``python -m
+    repro_torch.launch.train --arch qwen3-8b --reduced`` under
+    ``build/train_launch/``: SIGTERM after its first checkpoint, then
+    ``--resume``.  (f) ``--data-mesh 2 --dist-backend gloo`` as two ranks
+    sharing the card against one NCCL rank on the whole batch: the same
+    logged losses, parameters within the microbatch tolerance.  (g)
+    mamba2-2.7b at full width and depth and (h) qwen3-8b at full width,
+    20 of its 36 layers (the full depth's weights, gradients and float32
+    moments need 98.3 GB), bf16, ``cfg.remat`` on, TRAIN_4K's length
+    (batch 2 and 1), 6 steps on ``TokenPipeline`` batches: step ms, tok/s,
+    model FLOPs against the dense bf16 peak, the AdamW update's ms apart
+    (CUDA events), peak memory against the predicted, a ``torch.profiler``
+    trace of the last step (``build/traces/train_<arch>.json``); every loss
+    and norm finite, the first loss equal to ``Model.loss`` without grad
+    within ``_bf16_tol(layers)``, and the clip's norm equal to one taken
+    again from the ``.grad`` tensors.
+
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
 spilled path, on each rank of each mesh, and on the count server's, the
 rule server's and the launcher's paths counted apart in
-``launches_by_path``), phase 16's ``models`` record and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+``launches_by_path``), phase 16's ``models`` record, phase 17's ``train``
+record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 import contextlib
 import io
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -2233,7 +2262,605 @@ def _model_zoo(dev, smi):
             "full": [qwen, mamba]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the training path
+# ---------------------------------------------------------------------------
+
+# Phase 17's tolerances, those of the CPU tests (tests/test_torch_train.py,
+# test_torch_optimizer.py, test_torch_train_launcher.py): float32 gradients
+# per parameter within 1e-4 of that parameter's largest entry; one AdamW
+# update from identical gradients at float32 rounding (rtol 2e-6, atol
+# 1e-9); loss rtol 1e-5.  The microbatch test's (the JAX package's): loss
+# rtol 2e-5, parameters rtol 3e-3 atol 3e-5.  Whole steps are not compared
+# parameter by parameter across card and host: AdamW's first step is about
+# lr * sign(g), and a gradient within summation noise of 0 may flip.
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_UPDATE_TOL = dict(rtol=2e-6, atol=1e-9)
+TRAIN_MB_TOL = dict(loss_rtol=2e-5, rtol=3e-3, atol=3e-5)
+# two float32 sums of every gradient's square in two orders
+TRAIN_GNORM_RTOL = 1e-3
+TRAIN_OPT = dict(lr=1e-3, total_steps=40, warmup_steps=2)
+# (g) and (h): the training shape is TRAIN_4K's length; qwen3-8b cut to 20
+# of its 36 layers (see _train_full)
+QWEN_TRAIN_LAYERS = 20
+BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16, NVIDIA's data sheet
+# (g) and (h)'s peak rate: the launcher's 3e-4 with its one warmup step
+# moves every weight of a fresh model by about lr a step (AdamW's first
+# steps are about lr * sign(g)), and qwen3-8b's loss rose from 12.6 to 27
+# in 4 steps under it (measured on one H100)
+TRAIN_FULL_LR = 3e-5
+
+
+def _train_batch(cfg, seed, batch=4, seq=32):
+    """A ``TokenPipeline`` batch (and the encoder-decoder's frames)."""
+    import numpy as np
+
+    from repro_torch.data import TokenPipeline
+
+    out = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                        global_batch=batch, seed=seed).host_slice(0)
+    if cfg.encdec:
+        out["frames"] = np.random.default_rng(seed).normal(
+            size=(batch, seq, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def _train_reduced(dev):
+    """Phase 17 (a): every arch, reduced, float32, one ``train_step`` on the
+    card against the same step on the host, from the same weights and
+    batch: loss, ``grad_norm`` and every gradient; then ``apply_updates``
+    on the host from the card's gradients against the card's update."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model
+    from repro_torch.train import (AdamWConfig, apply_updates, init_state,
+                                   make_train_step)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    out = {}
+    for arch in sorted(ARCHS):
+        cpu = get_model(arch, reduced=True, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        gpu = get_model(arch, reduced=True, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        p0 = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+        batch = _train_batch(cpu.cfg, 0)
+        res = {}
+        for name, m in (("host", cpu), ("card", gpu)):
+            st = init_state(m, opt_cfg)
+            _, st, met = make_train_step(m, opt_cfg)(m, st, batch)
+            res[name] = met
+        for key, rtol in (("loss", 1e-5), ("grad_norm", 1e-4), ("lr", 1e-6)):
+            a, b = float(res["card"][key]), float(res["host"][key])
+            if abs(a - b) > rtol * abs(b):
+                raise AssertionError(f"(a) {arch}: {key} card {a} host {b}")
+        grad_err = 0.0
+        card_grads = {}
+        for (k, pc), (_, pg) in zip(cpu.named_parameters(),
+                                    gpu.named_parameters()):
+            g, w = pg.grad.cpu(), pc.grad
+            card_grads[k] = g
+            if not w.numel():
+                continue
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            if err > TRAIN_GRAD_RTOL * scale + 1e-9:
+                raise AssertionError(f"(a) {arch} {k}: gradient card vs host "
+                                     f"{err:.3e} > {TRAIN_GRAD_RTOL} x "
+                                     f"{scale:.3e}")
+            grad_err = max(grad_err, err / (scale + 1e-30))
+        host_p = {k: v.clone() for k, v in p0.items()}
+        apply_updates(host_p, card_grads, init_state(host_p, opt_cfg),
+                      opt_cfg)
+        upd_err = 0.0
+        for k, pg in gpu.named_parameters():
+            got = pg.detach().cpu()
+            torch.testing.assert_close(got, host_p[k], **TRAIN_UPDATE_TOL,
+                                       msg=lambda m: f"(a) {arch} {k} update "
+                                       f"from the card's gradients: {m}")
+            upd_err = max(upd_err, float((got - host_p[k]).abs().max()))
+        out[arch] = {"loss": float(res["card"]["loss"]),
+                     "grad_rel_err": grad_err, "update_max_abs_err": upd_err}
+        print(f"   (a) {arch:28s} loss {out[arch]['loss']:.6f} card == host; "
+              f"gradients within {grad_err:.2e} of each largest entry; "
+              f"update from the card's gradients max |err| {upd_err:.2e}",
+              flush=True)
+        del cpu, gpu
+    return out
+
+
+def _train_small(dev, smi):
+    """Phase 17 (b), (c), (d) on reduced models on the card."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    def setup(arch="qwen3-8b", batch=4, dtype=None, seed=0):
+        m = get_model(arch, reduced=True, device=dev, dtype=dtype).init(
+            torch.Generator(device=dev).manual_seed(seed))
+        cfg = AdamWConfig(**TRAIN_OPT, state_dtype=dtype or "float32")
+        pipe = TokenPipeline(vocab_size=m.cfg.vocab_size, seq_len=32,
+                             global_batch=batch, seed=0)
+        return m, cfg, pipe, init_state(m, cfg)
+
+    rec = {}
+    # (b) the loss falls: the JAX package's test_training_reduces_loss
+    model, cfg, pipe, st = setup()
+    fn = make_train_step(model, cfg)
+    losses = []
+    for step in range(15):
+        model, st, m = fn(model, st, pipe.host_slice(step))
+        losses.append(float(m["loss"]))
+    if not (all(map(math.isfinite, losses))
+            and losses[-1] < losses[0] - 0.1):
+        raise AssertionError(f"(b) the loss did not fall by 0.1: {losses}")
+    rec["loss_falls"] = losses
+    print(f"   (b) qwen3-8b reduced, 15 steps on the card: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+
+    # (c) 4 microbatches == 1
+    m1, cfg, pipe, s1 = setup(batch=8)
+    m4, _, _, s4 = setup(batch=8)
+    batch = pipe.host_slice(0)
+    _, _, r1 = make_train_step(m1, cfg, n_microbatches=1)(m1, s1, batch)
+    _, _, r4 = make_train_step(m4, cfg, n_microbatches=4)(m4, s4, batch)
+    l1, l4 = float(r1["loss"]), float(r4["loss"])
+    if abs(l1 - l4) > TRAIN_MB_TOL["loss_rtol"] * abs(l1):
+        raise AssertionError(f"(c) loss {l1} with 1 microbatch, {l4} with 4")
+    worst = 0.0
+    for (k, a), (_, b) in zip(m1.named_parameters(), m4.named_parameters()):
+        torch.testing.assert_close(b.detach(), a.detach(),
+                                   rtol=TRAIN_MB_TOL["rtol"],
+                                   atol=TRAIN_MB_TOL["atol"],
+                                   msg=lambda m: f"(c) {k}: {m}")
+        worst = max(worst, float((a - b).detach().abs().max()))
+    rec["microbatches"] = {"loss_1": l1, "loss_4": l4, "param_max_abs": worst}
+    print(f"   (c) 4 microbatches == 1 on the card: loss {l4:.6f} vs "
+          f"{l1:.6f}, parameters max |diff| {worst:.2e}", flush=True)
+    del model, m1, m4
+
+    # (d) bit-exact restart under deterministic algorithms
+    torch.use_deterministic_algorithms(True)
+    restart = {}
+    try:
+        runs = [(a, "float32") for a in sorted(ARCHS)]
+        runs.append(("qwen3-8b", "bfloat16"))
+        for arch, dtype in runs:
+            label = f"{arch} {dtype}"
+            try:
+                ok = _restart_bitexact(setup, arch, dtype)
+            except RuntimeError as e:
+                if "deterministic" not in str(e):
+                    raise
+                op = str(e).splitlines()[0][:160]
+                restart[label] = {"skipped": op}
+                print(f"   (d) {label}: no deterministic CUDA version of an "
+                      f"op it runs ({op}); not restarted", flush=True)
+                continue
+            restart[label] = ok
+            print(f"   (d) {label}: saved at step 3, restored, steps 3-5 "
+                  f"bit for bit ({ok['tensors']} parameters and moments)",
+                  flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for need in ("qwen3-8b float32", "qwen3-8b bfloat16"):
+        if "tensors" not in restart.get(need, {}):
+            raise AssertionError(f"(d) {need} was not restarted bit-exact")
+    rec["restart"] = restart
+    return rec
+
+
+def _restart_bitexact(setup, arch, dtype):
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import make_train_step
+
+    model, cfg, pipe, st = setup(arch, dtype=dtype)
+    fn = make_train_step(model, cfg)
+    d = ROOT / "build" / "train_restart" / f"{arch}_{dtype}"
+    shutil.rmtree(d, ignore_errors=True)
+    mgr = CheckpointManager(str(d), async_save=False)
+    extra = {"frames": _train_batch(model.cfg, 1).get("frames")}
+
+    def batch_at(step):
+        b = pipe.host_slice(step)
+        if model.cfg.encdec:
+            b["frames"] = extra["frames"]
+        return b
+
+    for step in range(6):
+        model, st, _ = fn(model, st, batch_at(step))
+        if step == 2:
+            mgr.save(3, (model, st))
+    fresh, _, _, fst = setup(arch, dtype=dtype, seed=1)
+    (fresh, fst), man = mgr.restore((fresh, fst))
+    if man["step"] != 3 or int(fst.step) != 3:
+        raise AssertionError(f"(d) {arch}: restored step {man['step']}")
+    fn2 = make_train_step(fresh, cfg)
+    for step in range(3, 6):
+        fresh, fst, _ = fn2(fresh, fst, batch_at(step))
+    n = 0
+    for (k, a), (_, b) in zip(model.named_parameters(),
+                              fresh.named_parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"(d) {arch} {dtype}: {k} differs after the "
+                                 "restart")
+        n += 1
+    for k in st.m:
+        if not (torch.equal(st.m[k], fst.m[k])
+                and torch.equal(st.v[k], fst.v[k])):
+            raise AssertionError(f"(d) {arch} {dtype}: moments of {k} differ")
+        n += 2
+    shutil.rmtree(d, ignore_errors=True)
+    return {"tensors": n}
+
+
+def _train_cmd(dev, *args):
+    """The launcher's command line; on the card ``--device`` is left at its
+    default."""
+    extra = [] if dev.type == "cuda" else ["--device", dev.type]
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "qwen3-8b", "--reduced"] + extra + list(args)
+
+
+def _train_env(**extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.update(extra)
+    return env
+
+
+def _train_launcher(dev, smi):
+    """Phase 17 (e): the launcher on the card, SIGTERM, ``--resume``;
+    (f) ``--data-mesh 2`` as two gloo ranks sharing the card against one
+    NCCL rank on the whole batch."""
+    import shutil
+    import signal
+    import socket
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import get_model
+
+    base = ROOT / "build" / "train_launch"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    rec = {}
+    # (e)
+    ck = base / "run"
+    args = ["--steps", "100000", "--batch", "2", "--seq", "16", "--ckpt-dir",
+            str(ck), "--ckpt-every", "5", "--log-every", "50"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(_train_cmd(dev, *args), env=_train_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=ROOT)
+    deadline = time.time() + 300
+    while time.time() < deadline and proc.poll() is None:
+        if ck.is_dir() and any(n.name.startswith("step_")
+                               and ".tmp" not in n.name
+                               and (n / "MANIFEST.json").exists()
+                               for n in ck.iterdir()):
+            break
+        time.sleep(0.2)
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=300)
+    for line in out.splitlines()[-6:]:
+        print(f"   | {line}")
+    if proc.returncode != 0 or "SIGTERM received" not in out:
+        raise AssertionError(f"(e) the launcher did not checkpoint on "
+                             f"SIGTERM (exit {proc.returncode}): {out[-2000:]}")
+    resumed = CheckpointManager(str(ck)).latest_step()
+    args[args.index("--steps") + 1] = str(resumed + 4)
+    run2 = subprocess.run(_train_cmd(dev, *args, "--resume"), env=_train_env(),
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    for line in run2.stdout.splitlines():
+        print(f"   | {line}")
+    if (run2.returncode != 0
+            or f"resumed from step {resumed}" not in run2.stdout
+            or run2.stdout.splitlines()[-1] != "done"):
+        raise AssertionError(f"(e) --resume failed: {run2.stdout[-1500:]}"
+                             f"{run2.stderr[-1500:]}")
+    rec["preempt_resume"] = {"resumed_from": resumed,
+                             "seconds": time.perf_counter() - t0}
+    print(f"   (e) SIGTERM at or after step {resumed}, resumed to "
+          f"{resumed + 4}: {rec['preempt_resume']['seconds']:.1f} s "
+          f"[{smi}]", flush=True)
+
+    # (f)
+    t0 = time.perf_counter()
+    common = ["--steps", "3", "--batch", "4", "--seq", "16", "--log-every",
+              "1", "--lr", "1e-3"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(_train_cmd(dev, *common, "--ckpt-dir",
+                                         str(base / "d1")),
+                              env=_train_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=ROOT)]
+    procs += [subprocess.Popen(
+        _train_cmd(dev, *common, "--ckpt-dir", str(base / "d2"), "--data-mesh",
+                   "2", "--dist-backend", "gloo"),
+        env=_train_env(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                       MASTER_ADDR="localhost", MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    if [p.returncode for p in procs] != [0, 0, 0]:
+        raise AssertionError(f"(f) exits {[p.returncode for p in procs]}: "
+                             + " || ".join(o[-1200:] for o in outs))
+    losses = [[float(v) for v in re.findall(r"step +\d+ loss (\S+)", o)]
+              for o in outs[:2]]
+    if len(losses[0]) != 3 or len(losses[1]) != 3 or any(
+            abs(a - b) > TRAIN_MB_TOL["loss_rtol"] * abs(a)
+            for a, b in zip(*losses)):
+        raise AssertionError(f"(f) losses: one NCCL rank {losses[0]}, two "
+                             f"gloo ranks {losses[1]}")
+    models = []
+    for d in ("d1", "d2"):
+        m = get_model("qwen3-8b", reduced=True, device=dev)
+        _, man = CheckpointManager(str(base / d)).restore(m)
+        models.append(m)
+    worst = 0.0
+    for (k, a), (_, b) in zip(models[0].named_parameters(),
+                              models[1].named_parameters()):
+        torch.testing.assert_close(b.detach(), a.detach(),
+                                   rtol=TRAIN_MB_TOL["rtol"],
+                                   atol=TRAIN_MB_TOL["atol"],
+                                   msg=lambda m: f"(f) {k}: {m}")
+        worst = max(worst, float((a - b).detach().abs().max()))
+    rec["data_mesh"] = {"losses_nccl_1": losses[0],
+                        "losses_gloo_2": losses[1], "param_max_abs": worst,
+                        "process_count": man["process_count"],
+                        "seconds": time.perf_counter() - t0}
+    print(f"   (f) --data-mesh 2 (two gloo ranks on the card) == one NCCL "
+          f"rank: losses {losses[1]} vs {losses[0]}, parameters max |diff| "
+          f"{worst:.2e}; {rec['data_mesh']['seconds']:.1f} s [{smi}]",
+          flush=True)
+    return rec
+
+
+def _kernel_breakdown(trace_path, top=8):
+    """(name, launches, device ms) of the ``top`` kernels by summed device
+    time in a ``torch.profiler`` Chrome trace."""
+    events = json.loads(Path(trace_path).read_text()).get("traceEvents", [])
+    by = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and "dur" in e:
+            n, ms = by.get(e["name"], (0, 0.0))
+            by[e["name"]] = (n + 1, ms + float(e["dur"]) / 1e3)
+    rows = sorted(by.items(), key=lambda kv: -kv[1][1])[:top]
+    return [(_short_kernel_name(name), n, ms) for name, (n, ms) in rows]
+
+
+def _short_kernel_name(name):
+    """A PyTorch kernel's template name cut to the ``at::native`` names in
+    it (the kernel, then its functor), e.g. ``elementwise_kernel/
+    gpu_kernel_impl_nocast/exp_kernel_cuda``; any other name's first 80
+    characters."""
+    parts = []
+    for p in re.findall(r"at::native::(?:(?:\(anonymous namespace\)|\w+)::)*"
+                        r"(\w+)", name):
+        if p not in parts:
+            parts.append(p)
+    return "/".join(parts)[:120] if parts else name[:80]
+
+
+def _train_model_flops(model, batch, seq):
+    """6 N T plus attention's score and value matmuls (causal, halved), 3x
+    for forward and backward: the JAX package's ``model_flops`` for a
+    training step."""
+    cfg = model.cfg
+    tokens = batch * seq
+    attn = 0.0
+    if cfg.n_heads:
+        n_attn = sum(1 for i in range(cfg.n_layers)
+                     if cfg.layer_kind(i) == "attn")
+        attn = 2.0 * tokens * seq * cfg.n_heads * cfg.d_head * 2 / 2 * n_attn
+    return 6.0 * model.n_params() * tokens + 3.0 * attn
+
+
+def _train_full(dev, smi, arch, n_layers, batch, seq, steps=6):
+    """Phase 17 (g) / (h): one arch at full width in bf16, ``cfg.remat``
+    on, AdamW state in the config's ``opt_state_dtype``, ``steps`` steps on
+    ``TokenPipeline`` batches; the last step traced."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    torch.cuda.empty_cache()
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{arch}: expected remat on and bf16")
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    n = model.n_params()
+    opt_cfg = AdamWConfig(lr=TRAIN_FULL_LR, total_steps=steps,
+                          warmup_steps=1, state_dtype=cfg.opt_state_dtype)
+    state = init_state(model, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_all
+    resident = torch.cuda.memory_allocated() - base_alloc
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch, seed=0)
+    tol = _bf16_tol(cfg.n_layers)
+
+    # the memory the step needs, predicted
+    vpad = model.lm_head.shape[1]
+    sb = {"float32": 4, "bfloat16": 2}[cfg.opt_state_dtype]
+    pred = {"weights": 2 * n, "gradients": 2 * n, "adamw_state": 2 * sb * n,
+            # every layer's input kept by the checkpoint, bf16
+            "saved_layer_inputs": cfg.n_layers * batch * seq * cfg.d_model * 2,
+            # bf16 logits, their float32 cast with the tail added, its
+            # log-sum-exp input and gradient: about 3 float32 copies
+            "loss": batch * seq * vpad * (2 + 3 * 4)}
+    pred_total = sum(pred.values())
+
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    fn = make_train_step(model, opt_cfg, mark=mark)
+    b0 = pipe.host_slice(0)
+    with torch.no_grad():
+        ref_loss = float(model.loss(b0))
+    torch.cuda.synchronize()
+    rows = []
+    trace = ROOT / "build" / "traces" / f"train_{arch}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof_out = None
+    for step in range(steps):
+        batch_np = pipe.host_slice(step)
+        mark("start")
+        t0 = time.perf_counter()
+        if step == steps - 1:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                model, state, met = fn(model, state, batch_np)
+                torch.cuda.synchronize()
+            prof_out = prof
+        else:
+            model, state, met = fn(model, state, batch_np)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fb_ms = events["start"].elapsed_time(events["grads"])
+        up_ms = events["grads"].elapsed_time(events["update"])
+        again = math.sqrt(sum(float(torch.sum(p.grad.float().square(),
+                                              dtype=torch.float64))
+                              for p in model.parameters()))
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{arch} step {step}: loss {loss} gnorm "
+                                 f"{gnorm}")
+        if abs(again - gnorm) > TRAIN_GNORM_RTOL * again:
+            raise AssertionError(f"{arch} step {step}: the clip saw norm "
+                                 f"{gnorm}, the .grad tensors {again}")
+        rows.append({"step": step, "loss": loss, "grad_norm": gnorm,
+                     "lr": float(met["lr"]), "step_ms": dt * 1e3,
+                     "fwd_bwd_ms": fb_ms, "update_ms": up_ms,
+                     "traced": step == steps - 1})
+        print(f"   step {step} loss {loss:.4f} gnorm {gnorm:.4f} (from .grad "
+              f"{again:.4f}) step {dt * 1e3:.1f} ms: forward+backward "
+              f"{fb_ms:.1f} ms, AdamW {up_ms:.1f} ms (CUDA events)"
+              f"{' [traced]' if step == steps - 1 else ''}", flush=True)
+    first_rel = abs(rows[0]["loss"] - ref_loss) / abs(ref_loss)
+    if first_rel > tol:
+        raise AssertionError(f"{arch}: the first step's loss "
+                             f"{rows[0]['loss']} vs Model.loss without grad "
+                             f"{ref_loss}: {first_rel:.4f} > {tol:.4f}")
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    prof_out.export_chrome_trace(str(trace))
+    kern, _ = _device_intervals(trace)
+    if not kern:
+        raise AssertionError(f"{arch}: the step's trace holds no kernel")
+    busy = _length(_union(kern)) / 1e3
+    span = (max(e for _, e in kern) - min(s for s, _ in kern)) / 1e3
+    top = _kernel_breakdown(trace)
+    timed = [r for r in rows[1:] if not r["traced"]] or rows[-1:]
+    step_ms = statistics.median(r["step_ms"] for r in timed)
+    fb_ms = statistics.median(r["fwd_bwd_ms"] for r in timed)
+    up_ms = statistics.median(r["update_ms"] for r in timed)
+    flops = _train_model_flops(model, batch, seq)
+    tokens = batch * seq
+    rec = {"arch": arch, "layers": cfg.n_layers, "layers_full": full.n_layers,
+           "d_model": cfg.d_model, "n_params": n, "dtype": cfg.dtype,
+           "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
+           "batch": batch, "seq": seq, "steps": rows, "init_s": init_s,
+           "ref_loss_no_grad": ref_loss, "first_loss_rel_err": first_rel,
+           "tol_bf16_rel": tol, "step_ms_median": step_ms,
+           "fwd_bwd_ms_median": fb_ms, "update_ms_median": up_ms,
+           "update_share": up_ms / step_ms, "tok_s": tokens / step_ms * 1e3,
+           "model_flops_per_step": flops,
+           "model_flops_share_of_bf16_peak": flops / (step_ms / 1e3)
+           / BF16_PEAK_FLOPS,
+           "resident_gib_after_init": resident / 2**30,
+           "peak_gib": peak / 2**30,
+           "predicted_gib": {k: v / 2**30 for k, v in pred.items()},
+           "predicted_total_gib": pred_total / 2**30,
+           "trace": {"file": str(trace.relative_to(ROOT)),
+                     "kernels": len(kern), "device_busy_ms": busy,
+                     "traced_span_ms": span, "idle_share": 1.0 - busy / span,
+                     "top_kernels": [{"name": nm, "launches": k, "ms": ms}
+                                     for nm, k, ms in top]},
+           "card": smi}
+    print(f"   {arch}: {cfg.n_layers} layers (of {full.n_layers}), d_model "
+          f"{cfg.d_model}, {n:,} parameters, batch {batch} x {seq}, bf16, "
+          f"AdamW state {cfg.opt_state_dtype}, remat on; init + state "
+          f"{init_s:.1f} s", flush=True)
+    print(f"   step {step_ms:.1f} ms (median of steps 1-{steps - 2}), "
+          f"{rec['tok_s']:,.0f} tok/s; forward+backward {fb_ms:.1f} ms, "
+          f"AdamW update {up_ms:.1f} ms ({rec['update_share']:.3f} of the "
+          f"step) [{smi}]", flush=True)
+    print(f"   model FLOPs a step {flops:.4e} (6 N T + attention): "
+          f"{rec['model_flops_share_of_bf16_peak']:.4f} of the dense bf16 "
+          f"peak {BF16_PEAK_FLOPS:.3e} FLOP/s [{smi}]", flush=True)
+    print(f"   memory: peak allocated {rec['peak_gib']:.3f} GiB (resident "
+          f"after init {rec['resident_gib_after_init']:.3f} GiB); predicted "
+          f"{rec['predicted_total_gib']:.3f} GiB = " + " + ".join(
+              f"{k} {v:.3f}" for k, v in rec["predicted_gib"].items())
+          + " (a layer's recompute and its backward not included)",
+          flush=True)
+    print(f"   trace of step {steps - 1} ({rec['trace']['file']}): "
+          f"{len(kern)} kernels, device busy {busy:.1f} ms of {span:.1f} ms, "
+          f"idle share {rec['trace']['idle_share']:.3f} [{smi}]", flush=True)
+    for nm, k, ms in top:
+        print(f"     {ms:9.1f} ms {k:6d} x {nm}", flush=True)
+    print(f"   loss {rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f} over "
+          f"{steps} steps at peak lr {TRAIN_FULL_LR:g}", flush=True)
+    print(f"   first step's loss {rows[0]['loss']:.6f} vs Model.loss "
+          f"without grad {ref_loss:.6f}: relative {first_rel:.2e} (tol "
+          f"{tol:.4f})", flush=True)
+    del model, state, fn, prof_out
+    for _ in range(2):
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _training(dev, smi):
+    """Phase 17: the training path (see the module docstring)."""
+    rec = {"reduced_card_vs_host": _train_reduced(dev)}
+    rec.update(_train_small(dev, smi))
+    rec.update(_train_launcher(dev, smi))
+    print("   (g) mamba2-2.7b at full width and depth, TRAIN_4K's length, "
+          "batch 2", flush=True)
+    rec["mamba2"] = _train_full(dev, smi, "mamba2-2.7b", 64, 2, 4096)
+    print(f"   (h) qwen3-8b at full width, {QWEN_TRAIN_LAYERS} of 36 layers, "
+          "batch 1 x 4,096.  The cut: at full depth the bf16 weights and "
+          "gradients and AdamW's two float32 moments take 12 bytes a "
+          "parameter, 12 x 8.19e9 = 98.3 GB > the card's 80 GB; 20 layers "
+          "(5.10e9 parameters) take 61.2 GB, plus about 1 GB of saved layer "
+          "inputs, a layer's recompute and about 7.5 GB for the float32 "
+          "logits, their log-sum-exp and their gradient; 24 layers would "
+          "take 70.5 GB before the activations", flush=True)
+    rec["qwen3"] = _train_full(dev, smi, "qwen3-8b", QWEN_TRAIN_LAYERS, 1,
+                               4096)
+    return rec
+
+
 def main() -> int:
+    # phase 17 (d) runs under torch.use_deterministic_algorithms, which
+    # wants cuBLAS's fixed workspace before the first handle exists
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3029,6 +3656,15 @@ def main() -> int:
     zoo = _model_zoo(dev, smi)
     _done(t0)
 
+    # ---- 17. the training path ---------------------------------------------
+    t0 = _phase("17. training: 10 reduced archs card vs host, loss, "
+                "microbatches, bit-exact restart, launcher, data mesh; "
+                "mamba2-2.7b and qwen3-8b (20 layers) at full width (bf16)")
+    print(f"   card: {smi}; allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    train = _training(dev, smi)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -3121,6 +3757,7 @@ def main() -> int:
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"models": zoo}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

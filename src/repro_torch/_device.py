@@ -1,4 +1,4 @@
-"""Device resolution shared by the port's entry points."""
+"""Device and process resolution shared by the port's entry points."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -16,3 +16,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the host")
     return dev
+
+
+def process_index_and_count():
+    """(rank, world size) of the initialised ``torch.distributed`` group;
+    (0, 1) without one (the JAX package's ``jax.process_index()`` and
+    ``jax.process_count()``)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

@@ -1,6 +1,8 @@
 """Carry state from the JAX package into the port: an encoded database
-(``dense_db_from_reference``) and a model's parameters
-(``model_from_reference``).
+(``dense_db_from_reference``), a model's parameters
+(``model_from_reference``), its AdamW state (``opt_state_from_reference``)
+and a training checkpoint the JAX package wrote
+(``checkpoint_from_reference``).
 
 The JAX package's ``DenseDB`` state is its vocabulary items, its (U, W)
 uint32 bitmap and its (U, C) int32 weights.  Handed over as plain Python and
@@ -10,7 +12,8 @@ byte for byte, so both packages can count the same encoded rows.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Hashable, Mapping, Sequence
+import re
+from typing import Any, Dict, Hashable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,11 +60,24 @@ def model_from_reference(cfg, params: Mapping[str, Any], *,
     ``decoder/attn/wq[3]`` -> ``decoder.3.attn.wq`` and
     ``decoder/layer3/moe/router[0]`` -> ``decoder.3.moe.router``.  Every
     leaf keeps its JAX shape and axis order."""
-    from .models.blocks import unit_layout
     from .models.registry import Model
-    from .models.transformer import _enc_cfg
 
     model = Model(cfg, device=device)
+    state = _check_keys("model_from_reference", reference_state(cfg, params),
+                        model)
+    with torch.no_grad():
+        for key, t in model.named_parameters():
+            t.copy_(state[key])
+    return model
+
+
+def reference_state(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX package's parameters (its parameters, or
+    AdamW's ``m`` or ``v``) as CPU tensors under the port's ``state_dict``
+    keys, by the key map of ``model_from_reference``."""
+    from .models.blocks import unit_layout
+    from .models.transformer import _enc_cfg
+
     state: Dict[str, torch.Tensor] = {}
 
     def flat(tree, prefix):
@@ -74,7 +90,7 @@ def model_from_reference(cfg, params: Mapping[str, Any], *,
     stacks = {"decoder": len(unit_layout(cfg)[1])}
     if cfg.encdec:
         stacks["encoder"] = len(unit_layout(_enc_cfg(cfg))[1])
-    for path, leaf in flat(params, ()):
+    for path, leaf in flat(tree, ()):
         leaf = _numpy(leaf)
         if path[0] not in stacks:
             state[".".join(path)] = leaf
@@ -86,23 +102,110 @@ def model_from_reference(cfg, params: Mapping[str, Any], *,
             first, rest = int(rest[0][len("layer"):]), rest[1:]
         for u in range(leaf.shape[0]):
             state[".".join((path[0], str(u * unit + first)) + rest)] = leaf[u]
+    return state
+
+
+def _check_keys(who: str, state: Dict[str, torch.Tensor], model):
     want = dict(model.named_parameters())
     if set(state) != set(want):
-        raise KeyError(f"model_from_reference: keys differ: missing "
+        raise KeyError(f"{who}: keys differ: missing "
                        f"{sorted(set(want) - set(state))[:8]}, unexpected "
                        f"{sorted(set(state) - set(want))[:8]}")
+    for key, arr in state.items():
+        if tuple(arr.shape) != tuple(want[key].shape):
+            raise ValueError(f"{who}: {key} has shape {tuple(arr.shape)}, "
+                             f"the model {tuple(want[key].shape)}")
+    return state
+
+
+def opt_state_from_reference(cfg, opt_state: Any, model):
+    """The JAX package's ``AdamWState`` (``step``, and ``m`` and ``v``
+    stacked like the parameters; numpy leaves) as the port's, on the
+    model's device: the moments keep their dtype (the config's
+    ``state_dtype``) and take the parameters' keys by the key map of
+    ``model_from_reference``."""
+    from .train.optimizer import AdamWState
+
+    step, m, v = (opt_state.step, opt_state.m, opt_state.v) \
+        if hasattr(opt_state, "step") else opt_state
+    dev = model.device
+    moments = [{k: t.to(dev) for k, t in _check_keys(
+        f"opt_state_from_reference ({name})", reference_state(cfg, tree),
+        model).items()} for name, tree in (("m", m), ("v", v))]
+    return AdamWState(
+        step=torch.as_tensor(int(np.asarray(step)), dtype=torch.int32,
+                             device=dev),
+        m=moments[0], v=moments[1])
+
+
+_KEYSTR = re.compile(r"\[(\d+)\]|\['([^']*)'\]|\.(\w+)")
+
+
+def _keystr_path(key: str) -> Tuple:
+    """``jax.tree_util.keystr`` of a path -> its entries (ints and names)."""
+    out, at = [], 0
+    for m in _KEYSTR.finditer(key):
+        if m.start() != at:
+            raise ValueError(f"cannot parse checkpoint key {key!r}")
+        at = m.end()
+        idx, name, attr = m.groups()
+        out.append(int(idx) if idx is not None else (name or attr))
+    if at != len(key):
+        raise ValueError(f"cannot parse checkpoint key {key!r}")
+    return tuple(out)
+
+
+def checkpoint_from_reference(directory: str, model, step: Optional[int] = None):
+    """Read a checkpoint that the JAX package's ``CheckpointManager`` wrote
+    of ``(params, opt_state)`` (its launcher's tree; keys are
+    ``jax.tree_util.keystr`` paths, bf16 stored as 2-byte voids) into the
+    port: the parameters are copied into ``model`` in place; returns
+    ``(AdamWState, manifest)``, so that a JAX training run resumes in the
+    port at ``manifest["step"]``."""
+    import json
+    import os
+
+    from .checkpoint.manager import CheckpointManager, _from_host
+
+    if step is None:
+        step = CheckpointManager(directory).latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    data = np.load(os.path.join(path, "arrays_p0.npz"))
+    trees: Dict[Any, Any] = {}
+    opt_step = None
+    for key in manifest["keys"]:
+        leaf = _from_host(data[key], manifest["dtypes"][key])
+        path_ = _keystr_path(key)
+        if path_ == (1, "step"):
+            opt_step = leaf
+            continue
+        root = {0: ("params",), 1: ("opt",)}.get(path_[0])
+        if root is None or (path_[0] == 1 and path_[1] not in ("m", "v")):
+            raise KeyError(f"checkpoint_from_reference: unexpected key {key!r}"
+                           " (expected the launcher's (params, opt_state))")
+        node = trees
+        for part in root + path_[1:-1]:
+            node = node.setdefault(part, {})
+        node[path_[-1]] = leaf
+    cfg = model.cfg
+    state = _check_keys("checkpoint_from_reference",
+                        reference_state(cfg, trees["params"]), model)
     with torch.no_grad():
-        for key, arr in state.items():
-            t = want[key]
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"model_from_reference: {key} has shape "
-                                 f"{arr.shape}, the model {tuple(t.shape)}")
-            t.copy_(arr)
-    return model
+        for key, t in model.named_parameters():
+            t.copy_(state[key])
+    opt = opt_state_from_reference(
+        cfg, (opt_step, trees["opt"]["m"], trees["opt"]["v"]), model)
+    return opt, manifest
 
 
 def _numpy(leaf) -> torch.Tensor:
     """A numpy leaf as a CPU tensor; bfloat16 (``ml_dtypes``) by its bits."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(

@@ -55,3 +55,11 @@ def census_like_db(n_rows: int, p_y: float, seed: int = 0,
             row.append(f"{col}={cat}")
         rows.append(row)
     return rows, y
+
+
+def token_stream(n_tokens: int, vocab_size: int, seed: int = 0,
+                 zipf_a: float = 1.3) -> np.ndarray:
+    """Zipfian token ids (LM training data)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.zipf(zipf_a, size=n_tokens) - 1
+    return (toks % vocab_size).astype(np.int32)

@@ -3,9 +3,34 @@
 The caller initialises the group (``init_process_group`` with its store or
 address, world size and rank: nothing on the machine tells a program of a
 cluster); this module lays the ranks out as a named mesh.  Importing it
-touches no device and no group.
+touches no device and no group.  Single pod = (data=16, model=16) = 256
+ranks; multi-pod = (pod=2, data=16, model=16) = 512, as in the JAX
+package's ``launch/mesh.py``.
 """
 from __future__ import annotations
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh over the initialised group's first 256 (512)
+    ranks; raises when the world is smaller."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < n:
+        raise RuntimeError(
+            f"need {n} ranks for mesh {shape}, have {have} — launch {n} "
+            "processes (torchrun, one card each) and initialise the "
+            "process group before building the production mesh")
+    ranks = torch.arange(n).reshape(shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *,
@@ -33,3 +58,12 @@ def make_host_mesh(data: int = 1, model: int = 1, *,
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(device_type, (data, model),
                             mesh_dim_names=("data", "model"))
+
+
+def dp_size(mesh) -> int:
+    """Data-parallel size: 'data' x 'pod' of a ``DeviceMesh`` or a
+    ``(sizes, names)`` pair."""
+    from ..parallel.sharding import mesh_shape
+
+    shape = mesh_shape(mesh)
+    return int(shape.get("data", 1) * shape.get("pod", 1))

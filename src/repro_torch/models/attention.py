@@ -8,8 +8,13 @@ block when the length does not divide), so the score tile is
 (B, KV, G, q_block, S_kv) and never S x S.  Scores and softmax are float32;
 masked scores are -1e30.
 
-The mesh-only 'heads' strategy (``repeated_heads_attention``, taken only
-when a mesh shards the heads) comes with ``parallel/``.
+Under an active sharding context (``parallel.sharding.sharding_ctx``)
+whose 'model' axis divides ``n_heads``, and unless ``force_kv_seq_attn``,
+``attn_forward`` takes the JAX package's 'heads' strategy
+(``repeated_heads_attention``: K/V repeated to all H heads) exactly where
+that package does; everywhere else the grouped one.  On a 1 x 1 mesh that
+is arctic-480b, llama4-maverick-400b-a17b and starcoder2-7b.  The two
+compute the same function.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel import sharding as shd
 from .common import ParamSpec, apply_rope, rmsnorm
 
 
@@ -32,6 +38,12 @@ def attn_specs(cfg, cross: bool = False) -> Dict[str, ParamSpec]:
         specs["q_norm"] = ParamSpec((dh,), ("norm",), init="ones")
         specs["k_norm"] = ParamSpec((dh,), ("norm",), init="ones")
     return specs
+
+
+def _heads_shardable(cfg) -> bool:
+    if not shd.active() or cfg.force_kv_seq_attn:
+        return False
+    return cfg.n_heads % shd.active_mesh_shape().get("model", 1) == 0
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -98,12 +110,52 @@ def grouped_attention(q, k, v, *, q_positions, kv_positions, causal: bool,
     return torch.cat(outs, dim=1).reshape(b, sq, h, dh)
 
 
+def repeated_heads_attention(q, k, v, *, q_positions, kv_positions,
+                             causal: bool, cfg) -> torch.Tensor:
+    """The 'heads' strategy: K/V repeated to H heads (the JAX package
+    shards those heads over 'model'); q blocks as in
+    ``grouped_attention``.  Causal masking only, as there."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    k = shd.constrain(k, "act_batch", None, None, None)
+    v = shd.constrain(v, "act_batch", None, None, None)
+    q = shd.constrain(q, "act_batch", None, "act_heads", None)
+    k = torch.repeat_interleave(k, h // kvh, dim=2)
+    v = torch.repeat_interleave(v, h // kvh, dim=2)
+    k = shd.constrain(k, "act_batch", None, "act_heads", None)
+    v = shd.constrain(v, "act_batch", None, "act_heads", None)
+    scale = dh ** -0.5
+
+    blk = min(cfg.attn_block_q, sq)
+    if sq % blk != 0:
+        blk = sq
+    nblk = sq // blk
+
+    def block(qb, qp):
+        scores = (torch.einsum("bqhd,bshd->bhqs", qb, k) * scale).float()
+        if causal:
+            mask = qp[:, None] >= kv_positions[None, :]
+            scores = scores.masked_fill(~mask, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+    if nblk == 1:
+        return block(q, q_positions)
+    qpos = q_positions.reshape(nblk, blk)
+    return torch.cat([block(q[:, j * blk:(j + 1) * blk], qpos[j])
+                      for j in range(nblk)], dim=1)
+
+
 def attn_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor,
                  causal: bool = True) -> torch.Tensor:
     """Full-sequence self-attention (train / prefill)."""
+    heads = _heads_shardable(cfg)
+    if heads:
+        x = shd.constrain(x, "act_batch", None, "act_embed")
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions)
-    out = grouped_attention(q, k, v, q_positions=positions,
-                            kv_positions=positions, causal=causal, cfg=cfg)
+    attend = repeated_heads_attention if heads else grouped_attention
+    out = attend(q, k, v, q_positions=positions, kv_positions=positions,
+                 causal=causal, cfg=cfg)
     return _out_proj(out, p.wo)
 
 

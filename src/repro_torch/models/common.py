@@ -4,8 +4,9 @@ Parameters are declared as ``ParamSpec`` trees (shape + logical axes +
 init), as in the JAX package's ``models/common.py``.  One tree yields the
 parameter count without allocating anything (``param_count``) and the
 ``nn.Module`` tree that holds the real parameters (``ParamModule``).  The
-logical axes are kept for the mesh slice (``parallel/``); nothing reads them
-yet.
+logical axes feed ``parallel/sharding.py``: ``Model.shardings`` turns them
+into DTensor placements (``named_specs`` pairs each parameter with its
+spec).
 
 The functions here and in the sibling modules take a ``ParamModule`` where
 the JAX package takes a params dict, and read its parameters as attributes
@@ -60,8 +61,8 @@ class ParamModule(nn.Module):
     """The parameters of one spec dict: a ``ParamSpec`` becomes a parameter
     of that name, a dict a child ``ParamModule``, a list an
     ``nn.ModuleList`` of them.  Storage is left uninitialized; ``init_params``
-    fills it.  Parameters do not require grad: this slice serves, and the
-    backward comes with training."""
+    fills it.  Parameters require grad: ``Model.loss`` trains through
+    autograd; the serving entry points run under ``torch.no_grad``."""
 
     def __init__(self, specs: Dict[str, Any], dtype: torch.dtype,
                  device: torch.device):
@@ -71,8 +72,7 @@ class ParamModule(nn.Module):
             if isinstance(s, ParamSpec):
                 self.specs[name] = s
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(s.shape, dtype=dtype, device=device),
-                    requires_grad=False))
+                    torch.empty(s.shape, dtype=dtype, device=device)))
             elif isinstance(s, dict):
                 self.add_module(name, ParamModule(s, dtype, device))
             else:
@@ -81,6 +81,15 @@ class ParamModule(nn.Module):
 
     def has(self, name: str) -> bool:
         return name in self.specs or name in self._modules
+
+
+def named_specs(root: nn.Module):
+    """(``state_dict`` name, ``ParamSpec``) of every parameter under
+    ``root``, in ``named_parameters`` order."""
+    for prefix, mod in root.named_modules():
+        if isinstance(mod, ParamModule):
+            for name in mod._parameters:
+                yield (f"{prefix}.{name}" if prefix else name), mod.specs[name]
 
 
 @torch.no_grad()
@@ -174,8 +183,9 @@ def lm_logits(p, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
-    """Mean token cross-entropy; padded vocab tail masked out.  Forward
-    only: its backward comes with training."""
+    """Mean token cross-entropy; padded vocab tail masked out.  Float32
+    from the cast on, as in the JAX package; its backward is autograd's
+    (about three float32 copies of the logits live at its peak)."""
     logits = logits.float()
     vpad = logits.shape[-1]
     if vpad != vocab_size:

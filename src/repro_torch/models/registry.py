@@ -5,6 +5,9 @@ architecture (the JAX package's ``models/registry.py``).
 (uninitialized until ``init``) on one device, and binds the assembly
 functions of ``transformer.py`` to them.  Inputs may be tensors anywhere or
 numpy arrays; they are moved to the model's device.
+
+``loss`` runs with autograd (training: ``train/train_step.py``);
+``forward``, ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from . import transformer
-from .common import ParamModule, init_params, param_count
+from .common import ParamModule, init_params, named_specs, param_count
 from .config import ModelConfig
 
 
@@ -45,6 +48,22 @@ class Model(ParamModule):
     def n_params(self) -> int:
         return param_count(self.param_specs)
 
+    def abstract(self) -> Dict[str, torch.Tensor]:
+        """The JAX package's ``abstract_params``: every parameter as a
+        tensor on the ``meta`` device (shape and dtype, no storage), keyed
+        by its ``state_dict`` name."""
+        meta = ParamModule(self.param_specs, self.dtype, torch.device("meta"))
+        return {k: v.detach() for k, v in meta.named_parameters()}
+
+    def shardings(self, mesh) -> Dict[str, tuple]:
+        """The JAX package's ``param_shardings``: every parameter's DTensor
+        placements over ``mesh`` (a ``DeviceMesh`` or ``(sizes, names)``),
+        from its logical axes and shape by ``parallel.sharding``.  Computed
+        here; applied with the mesh slice (ROADMAP queue 1 item 4 (ii))."""
+        from ..parallel import sharding as shd
+        return {k: shd.named_sharding(s.logical, shape=s.shape, mesh=mesh)
+                for k, s in named_specs(self)}
+
     def _in(self, t, dtype=None):
         if t is None:
             return None
@@ -56,7 +75,6 @@ class Model(ParamModule):
         return transformer.forward(self, self._in(tokens, torch.long),
                                    self.cfg, frames=self._in(frames))
 
-    @torch.no_grad()
     def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
         batch = {k: self._in(v, None if k == "frames" else torch.long)
                  for k, v in batch.items()}

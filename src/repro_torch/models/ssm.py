@@ -8,8 +8,14 @@ einsums; the inter-chunk recurrence, a ``lax.scan`` in the JAX package, is
 a loop over the chunks that keeps the state entering each chunk.  Plain
 PyTorch: no Pallas kernel lies on this path.
 
-Every exponent is of a cumulative sum of dt * A with A < 0, so it is at
-most 0: the exps underflow to 0 over a long chunk and never overflow.
+Every exponent kept is of a cumulative sum of dt * A with A < 0, so it is
+at most 0: the exps underflow to 0 over a long chunk and never overflow.
+The decay matrix's upper triangle (``_segsum``) would be the other sign:
+the JAX package exponentiates it and then zeroes it, which leaves the
+forward finite but makes the gradient 0 * inf = NaN once a chunk's decay
+passes e^88 (mamba2-2.7b's chunks of 256 at TRAIN_4K).  The port masks it
+to -inf before the exp: the same forward, bit for bit, and a finite
+gradient (ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -73,7 +79,9 @@ def _segsum(dA: torch.Tensor) -> torch.Tensor:
     diff = cs[..., :, None, :] - cs[..., None, :, :]              # (..., Q, Q, nh)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dA.device))
     diff = torch.movedim(diff, -1, -3)                            # (..., nh, Q, Q)
-    return torch.where(mask, torch.exp(diff), 0.0)
+    # mask before the exp: exp(-inf) = 0 with a zero gradient, where the
+    # upper triangle's exp would overflow and its gradient be 0 * inf
+    return torch.exp(torch.where(mask, diff, float("-inf")))
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int):

@@ -1,10 +1,16 @@
 """Model assembly: decoder-only LMs (dense / MoE / SSM / hybrid) and the
-encoder-decoder (audio) variant; forward, the training loss (forward only),
-prefill and decode (the JAX package's ``models/transformer.py``).
+encoder-decoder (audio) variant; forward, the training loss, prefill and
+decode (the JAX package's ``models/transformer.py``).
 
 The layer stack is a Python loop over ``p.decoder``, an ``nn.ModuleList``
-with one module per layer.  The JAX package's ``remat`` and
-``unroll_stack`` shape XLA's program, not the function, and have no
+with one module per layer.  ``cfg.remat`` checkpoints every layer when
+autograd records (``torch.utils.checkpoint``, non-reentrant): the JAX
+package checkpoints each one-layer scan unit, and each layer inside a
+superblock (``blocks.py``), so per layer is what both do.  A checkpointed
+layer keeps only its input; backward runs it again.  No layer draws
+random numbers, so the RNG state is not saved; the MoE router's ``topk``
+sees the same logits twice and drops the same tokens.  The JAX package's
+``unroll_stack`` shapes XLA's program, not the function, and has no
 counterpart here.
 
 Decode state (``init_cache``) is a dict: ``"layers"``, one dict per decoder
@@ -21,6 +27,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .attention import _project_qkv, cross_kv
 from .blocks import layer_cache, layer_decode, layer_forward, layer_kinds
@@ -62,9 +69,28 @@ def _encode(p, frames: torch.Tensor, cfg) -> torch.Tensor:
     x = frames.to(p.enc_in_proj.dtype) @ p.enc_in_proj
     positions = torch.arange(frames.shape[1], device=x.device)
     for layer, (kind, mlp_kind) in zip(p.encoder, layer_kinds(enc_cfg)):
-        x = layer_forward(layer, x, enc_cfg, kind, mlp_kind, positions,
-                          causal=False)
+        x = _remat(cfg, layer_forward, layer, x, enc_cfg, kind, mlp_kind,
+                   positions, causal=False)
     return rmsnorm(x, p.enc_norm, cfg.norm_eps)
+
+
+def _remat(cfg, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, checkpointed when ``cfg.remat`` and autograd
+    records (see the module docstring)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
+def _decoder_layer(layer, x, cfg, kind, mlp_kind, positions, enc_out,
+                   enc_positions):
+    """One decoder layer; the cross-attention K/V from ``enc_out`` inside
+    it, so that a checkpoint keeps ``enc_out`` and not every layer's K/V."""
+    enc_kv = None if enc_out is None else cross_kv(layer.cross, enc_out)
+    return layer_forward(layer, x, cfg, kind, mlp_kind, positions,
+                         causal=True, enc_kv=enc_kv,
+                         enc_positions=enc_positions)
 
 
 def _encoder_out(p, frames, cfg):
@@ -84,10 +110,8 @@ def forward(p, tokens: torch.Tensor, cfg,
     positions = torch.arange(tokens.shape[1], device=x.device)
     enc_out, enc_positions = _encoder_out(p, frames, cfg)
     for layer, (kind, mlp_kind) in zip(p.decoder, layer_kinds(cfg)):
-        enc_kv = None if enc_out is None else cross_kv(layer.cross, enc_out)
-        x = layer_forward(layer, x, cfg, kind, mlp_kind, positions,
-                          causal=True, enc_kv=enc_kv,
-                          enc_positions=enc_positions)
+        x = _remat(cfg, _decoder_layer, layer, x, cfg, kind, mlp_kind,
+                   positions, enc_out, enc_positions)
     return lm_logits(p, x, cfg)
 
 
