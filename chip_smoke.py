@@ -205,12 +205,33 @@ phase, and fail on the first phase that fails.
     within ``_bf16_tol(layers)``, and the clip's norm equal to one taken
     again from the ``.grad`` tensors.
 
+18. Tensor and expert parallelism over a 'model' mesh axis
+    (``parallel/collectives.py``, ``Model(mesh=)``; plain PyTorch, no
+    kernel of this repo), on gloo ranks sharing the card.  (a) Every arch at
+    its reduced config in float32 on meshes (2, 2) (four ranks) and (1, 2)
+    (two), each rank against a 1 x 1 run of the same weights on the card:
+    forward, prefill (its cache split over 'model'), 4 decode steps and a
+    train step; logits within ``TP_F32_TOL`` of the largest, the loss
+    within ``TP_LOSS_RTOL``, every gradient within ``TP_GRAD_TOL`` of its
+    parameter's largest entry.  On (1, 2) against rank 0's 1 x 1 run, in
+    bf16: (b) arctic-480b and (c) llama4-maverick-400b-a17b at full width,
+    1 layer, and (d) qwen3-32b at full width and depth, each a 1 x 512
+    prefill into 528 positions and 16 decode steps fed the 1 x 1 run's
+    greedy tokens, the logits' relative L2 within ``_bf16_tol(layers)``;
+    prefill ms, decode ms a step, kernels a step (``torch.profiler``), the
+    collectives' share of the wall (``collectives.STATS``) and peak memory a
+    rank; (e) qwen3-8b at full width, 8 layers, 2 train steps at 1 x 2,048,
+    losses and clip norms within ``_tp_limit_train``.  The sizes of the
+    archs one card holds only in part are printed first, and the time of
+    one gloo all-reduce and all-gather on the card by size.
+
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
 spilled path, on each rank of each mesh, and on the count server's, the
 rule server's and the launcher's paths counted apart in
 ``launches_by_path``), phase 16's ``models`` record, phase 17's ``train``
-record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+record, phase 18's ``tensor_parallel`` record and ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 import contextlib
@@ -2857,6 +2878,459 @@ def _training(dev, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: tensor and expert parallelism over a 'model' mesh axis
+# ---------------------------------------------------------------------------
+
+# (a)'s limits, float32 on the card against the same card's 1 x 1 run:
+# every logit within 1e-5 of the largest, the loss within 1e-6 relative,
+# every gradient within 1e-5 of its parameter's largest entry.  The CPU
+# (tests/_torch_tp_worker.py) saw at most 7.5e-6 of a gradient's largest
+# entry (jamba's D on 1 x 4) and 4.4e-7 of a logit.
+TP_F32_TOL = 1e-5
+TP_LOSS_RTOL = 1e-6
+TP_GRAD_TOL = 1e-5
+# (b)-(d): prompt, cache positions and decode steps; (e): layers, batch,
+# sequence and steps
+TP_PROMPT, TP_MAX_LEN, TP_STEPS = 512, 528, 16
+TP_FULL = (("(b)", "arctic-480b", 1), ("(c)", "llama4-maverick-400b-a17b", 1),
+           ("(d)", "qwen3-32b", 64))
+TP_TRAIN = ("qwen3-8b", 8, 1, 2048, 2)
+TP_JOIN_S = 900
+
+
+def _tp_limit_train(n_layers):
+    """(e)'s limits, argued from rounding before the run: the loss is one
+    float32 mean of 2,048 terms whose logits are rounded to bf16 (2^-8)
+    at other places in the two runs, so it moves by at most one bf16
+    rounding of itself, 2^-8 relative; the clip's norm sums squares of
+    bf16 gradients, each rounded once more per layer where the split adds
+    a partial sum, layers in quadrature: 2^-8 * sqrt(layers)."""
+    return 2.0 ** -8, 2.0 ** -8 * n_layers ** 0.5
+
+
+def _tp_compare_reduced(dev, mesh, rank, data):
+    """(a) on one rank: every reduced arch in float32, this mesh against a
+    1 x 1 run of the same weights on the same card, for this data rank's
+    rows; returns the largest errors, each over its limit's scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import get_model
+    from repro_torch.models.common import named_slices
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    dr = mesh.get_local_rank("data")
+    out = {}
+    for arch in sorted(ARCHS):
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)
+        one = get_model(arch, reduced=True, device=dev).init(gen())
+        tp = get_model(arch, reduced=True, device=dev, mesh=mesh).init(gen())
+        cfg = one.cfg
+        rng = np.random.default_rng(0)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 41)),
+                               device=dev)
+        frames = None
+        if cfg.encdec:
+            frames = torch.as_tensor(rng.normal(size=(2, 40, cfg.frontend_dim)),
+                                     dtype=torch.float32, device=dev)
+        n = 2 // data
+        toks = toks[dr * n:(dr + 1) * n]
+        frames = None if frames is None else frames[dr * n:(dr + 1) * n]
+        worst = {"logits": 0.0, "loss": 0.0, "grads": 0.0}
+
+        def logits(a, b, what):
+            err = float((a - b).abs().max()) / float(b.abs().max())
+            if err > TP_F32_TOL:
+                raise AssertionError(f"rank {rank} {arch} {what}: max |err| "
+                                     f"{err:.3e} of the largest logit > "
+                                     f"{TP_F32_TOL:g}")
+            worst["logits"] = max(worst["logits"], err)
+
+        logits(tp.forward(toks[:, :40], frames=frames),
+               one.forward(toks[:, :40], frames=frames), "forward")
+        fp = None if frames is None else frames[:, :32]
+        lt, ct = tp.prefill(toks[:, :32], 40, frames=fp)
+        lo, co = one.prefill(toks[:, :32], 40, frames=fp)
+        logits(lt, lo, "prefill")
+        if not ct.get("kv_split"):
+            raise AssertionError(f"{arch}: the cache is not split over model")
+        for i in range(4):
+            pos = 32 + i
+            lt, ct = tp.decode_step(ct, toks[:, pos:pos + 1], pos)
+            lo, co = one.decode_step(co, toks[:, pos:pos + 1], pos)
+            logits(lt, lo, f"decode {i}")
+        batch = {"tokens": toks[:, :40], "labels": toks[:, 1:]}
+        if frames is not None:
+            batch["frames"] = frames
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        _, _, mt = make_train_step(tp, ocfg, group=mesh["data"].get_group())(
+            tp, init_state(tp, ocfg), batch)
+        # the 1 x 1 run on this data rank's rows, its gradients and loss
+        # averaged over the data ranks as the train step averages them
+        for p in one.parameters():
+            p.grad = None
+        lo = one.loss(batch)
+        lo.backward()
+        if data > 1:
+            import torch.distributed as dist
+            g = mesh["data"].get_group()
+            for p in one.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                dist.all_reduce(p.grad, group=g)
+                p.grad /= data
+            lo = lo.detach().reshape(1).clone()
+            dist.all_reduce(lo, group=g)
+            lo = lo[0] / data
+        lo = float(lo.detach())
+        err = abs(float(mt["loss"]) - lo) / abs(lo)
+        if err > TP_LOSS_RTOL:
+            raise AssertionError(f"rank {rank} {arch}: loss {float(mt['loss'])}"
+                                 f" vs {lo} ({err:.3e} relative)")
+        worst["loss"] = err
+        ref = dict(one.named_parameters())
+        for k, sl in named_slices(tp):
+            want = ref[k].grad
+            want = want if sl is None else want.narrow(*sl)
+            got = dict(tp.named_parameters())[k].grad
+            scale = float(want.abs().max()) if want.numel() else 0.0
+            e = float((got - want).abs().max()) if want.numel() else 0.0
+            if e > TP_GRAD_TOL * scale + 1e-12:
+                raise AssertionError(f"rank {rank} {arch} grad {k}: {e:.3e} "
+                                     f"> {TP_GRAD_TOL:g} x {scale:.3e}")
+            worst["grads"] = max(worst["grads"], e / scale if scale else 0.0)
+        out[arch] = worst
+        del one, tp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve(dev, cfg, mesh, prompts, tokens):
+    """Prefill ``prompts`` into a TP_MAX_LEN cache and decode TP_STEPS
+    steps: greedy on the 1 x 1 run (``tokens`` None), the 1 x 1 run's
+    tokens on a mesh.  Steps 0-7 timed plain, 8-13 with the collectives
+    timed (``STATS``, a device synchronise around each), 14-15 under
+    ``torch.profiler`` for the kernels a step."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.parallel import collectives as coll
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(cfg, device=dev, mesh=mesh).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    t = time.perf_counter()
+    lg, cache = model.prefill(prompts, TP_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    rows = [lg[:, -1].float().cpu()]
+    toks = [] if tokens is None else list(tokens)
+    plain, coll_s, coll_wall, kernels = [], 0.0, 0.0, 0
+    import torch.distributed as dist
+    shape = (1, 1) if mesh is None else tuple(mesh.shape)
+    trace = (ROOT / "build" / "traces" / f"tp_{cfg.name}_{shape[0]}x"
+             f"{shape[1]}_rank{dist.get_rank()}.json")
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    for i in range(TP_STEPS):
+        if tokens is None:
+            toks.append(int(rows[-1][0, :cfg.vocab_size].argmax()))
+        tok = torch.tensor([[toks[i]]], device=dev)
+        if i == 8:
+            coll.STATS.reset()
+            coll.STATS.enabled = True
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i < 14:
+            lg, cache = model.decode_step(cache, tok, TP_PROMPT + i)
+        else:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                lg, cache = model.decode_step(cache, tok, TP_PROMPT + i)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            kernels += len(_device_intervals(trace)[0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if i < 8:
+            plain.append(dt)
+        elif i < 14:
+            coll_wall += dt
+        if i == 13:
+            coll_s = coll.STATS.seconds
+            coll.STATS.enabled = False
+        rows.append(lg[:, -1].float().cpu())
+    peak = torch.cuda.max_memory_allocated()
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"logits": torch.cat(rows[:-1]), "tokens": toks,
+            "init_s": init_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": 1e3 * sum(plain) / len(plain),
+            "kernels_per_step": kernels / (TP_STEPS - 14),
+            "collective_share": coll_s / coll_wall if coll_wall else 0.0,
+            "peak_gib": peak / 2**30, "weights_gib": held / 2**30}
+
+
+def _tp_train(dev, cfg, mesh, batch, steps):
+    """(e): ``steps`` train steps of ``cfg`` on one batch; losses, clip
+    norms, step ms, peak memory."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev, mesh=mesh).init(
+        torch.Generator(device=dev).manual_seed(0))
+    ocfg = AdamWConfig(lr=3e-5, warmup_steps=1, total_steps=steps,
+                       state_dtype=cfg.opt_state_dtype)
+    state = init_state(model, ocfg)
+    # one data rank: no data all-reduce
+    step = make_train_step(model, ocfg)
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "step_ms": ms,
+            "peak_gib": peak / 2**30}
+
+
+def _tp_collective_ms(mesh, dev, runs=20):
+    """Host wall ms of one gloo all-reduce and one all-gather of float32
+    tensors on the card over the model group, by element count, each
+    timed from a device synchronise to the next."""
+    import torch
+
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+
+    out = {}
+    with shd.sharding_ctx(mesh):
+        for n in (1024, 5120, 1 << 20, 5 << 20):
+            x = torch.ones(n, device=dev)
+            for name, fn in (("all_reduce", lambda: coll.all_reduce(x)),
+                             ("all_gather", lambda: coll.all_gather(x, 0))):
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+                out[f"{name} {n}"] = (time.perf_counter() - t) * 1e3 / runs
+    return out
+
+
+def _tp_rank(rank, world, store, out_dir):
+    """One of phase 18's gloo ranks sharing the card: (a) on a (world/2, 2)
+    mesh; with two ranks also (b)-(e), rank 0 first running each alone on
+    1 x 1 while rank 1 waits."""
+    import dataclasses
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TP_JOIN_S))
+    out = {"rank": rank}
+    try:
+        data = world // 2
+        mesh = make_host_mesh(data, 2, device_type="cpu")
+        t = time.perf_counter()
+        out["reduced"] = _tp_compare_reduced(dev, mesh, rank, data)
+        out["reduced_s"] = time.perf_counter() - t
+        if world == 2:
+            out["collective_ms"] = _tp_collective_ms(mesh, dev)
+            for label, arch, layers in TP_FULL:
+                cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+                prompts = torch.as_tensor(np.random.default_rng(0).integers(
+                    0, cfg.vocab_size, (1, TP_PROMPT)), device=dev)
+                one = _tp_serve(dev, cfg, None, prompts, None) \
+                    if rank == 0 else None
+                toks = [one["tokens"] if rank == 0 else None]
+                dist.broadcast_object_list(toks, src=0)
+                two = _tp_serve(dev, cfg, mesh, prompts, toks[0])
+                rec = {"two": {k: v for k, v in two.items()
+                               if k not in ("logits", "tokens")}}
+                if rank == 0:
+                    rel, mx = _rel_rows(two["logits"], one["logits"],
+                                        cfg.vocab_size)
+                    tol = _bf16_tol(layers)
+                    if not (torch.isfinite(two["logits"]).all() and rel <= tol):
+                        raise AssertionError(
+                            f"{label} {arch}: 1 x 2 logits differ from 1 x 1 "
+                            f"by {rel:.4f} relative L2 > {tol:.4f}")
+                    rec.update(one={k: v for k, v in one.items()
+                                    if k not in ("logits", "tokens")},
+                               rel_l2=rel, max_abs_err=mx, tol=tol)
+                out[label] = rec
+                dist.barrier()
+            arch, layers, b, s, steps = TP_TRAIN
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            rng = np.random.default_rng(0)
+            toks = rng.integers(0, cfg.vocab_size, (b, s + 1))
+            batch = {"tokens": toks[:, :s], "labels": toks[:, 1:]}
+            one = _tp_train(dev, cfg, None, batch, steps) if rank == 0 \
+                else None
+            dist.barrier()
+            two = _tp_train(dev, cfg, mesh, batch, steps)
+            rec = {"two": two}
+            if rank == 0:
+                lt, nt = _tp_limit_train(layers)
+                for a, b_ in zip(two["losses"], one["losses"]):
+                    if abs(a - b_) > lt * abs(b_):
+                        raise AssertionError(f"(e) loss {a} vs {b_} > {lt:g}")
+                for a, b_ in zip(two["grad_norms"], one["grad_norms"]):
+                    if not math.isfinite(a) or abs(a - b_) > nt * abs(b_):
+                        raise AssertionError(f"(e) clip norm {a} vs {b_} > "
+                                             f"{nt:g}")
+                rec.update(one=one, loss_rtol=lt, norm_rtol=nt)
+            out["(e)"] = rec
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _tp_spawn(world, out_dir):
+    import torch.multiprocessing as tmp
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*"):
+        f.unlink()
+    ctx = tmp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, daemon=True,
+                         args=(r, world, str(out_dir / "gloo.store"),
+                               str(out_dir))) for r in range(world)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"phase 18, {world} gloo ranks: exit codes "
+                             f"{codes}")
+    return ([json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)], time.perf_counter() - t)
+
+
+def _tp_sizes():
+    """Parameters and bf16 GB of the archs one card holds only in part,
+    at the depths that matter (counted from the specs, nothing built)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import param_count
+    from repro_torch.models.transformer import model_specs
+
+    out = {}
+    for arch, depths in (("arctic-480b", (1, 2, 35)),
+                         ("llama4-maverick-400b-a17b", (1, 2, 48)),
+                         ("jamba-1.5-large-398b", (8, 72)),
+                         ("qwen3-32b", (64,)), ("chameleon-34b", (48,))):
+        for n in depths:
+            cfg = dataclasses.replace(get_config(arch), n_layers=n)
+            k = param_count(model_specs(cfg))
+            out[f"{arch} {n} layers"] = {"params": k, "bf16_gb": 2 * k / 1e9}
+    return out
+
+
+def _tensor_parallel(smi):
+    """Phase 18 (see the module docstring)."""
+    rec = {"card": smi, "sizes": _tp_sizes()}
+    print("   sizes: " + "; ".join(
+        f"{k} {v['params'] / 1e9:.2f}e9 parameters, {v['bf16_gb']:.1f} GB "
+        "bf16" for k, v in rec["sizes"].items()), flush=True)
+    for world in (4, 2):
+        ranks, secs = _tp_spawn(world, ROOT / "build" / f"tp{world}")
+        shape = f"({world // 2}, 2)"
+        worst = {k: max(r["reduced"][a][k] for r in ranks
+                        for a in r["reduced"])
+                 for k in ("logits", "loss", "grads")}
+        reduced_s = max(r["reduced_s"] for r in ranks)
+        rec[f"reduced {shape}"] = dict(worst, seconds=reduced_s,
+                                       spawn_seconds=secs)
+        print(f"   (a) mesh {shape}, {world} gloo ranks sharing the card, "
+              f"{len(ranks[0]['reduced'])} reduced archs in float32 against "
+              f"the same card's 1 x 1 run: forward, prefill, 4 decode steps, "
+              f"a train step; worst logit error {worst['logits']:.3e} of the "
+              f"largest (limit {TP_F32_TOL:g}), loss {worst['loss']:.3e} "
+              f"relative ({TP_LOSS_RTOL:g}), gradient {worst['grads']:.3e} of "
+              f"its largest entry ({TP_GRAD_TOL:g}); {reduced_s:.3f} s, the "
+              f"ranks' whole run {secs:.3f} s with the start-up [{smi}]",
+              flush=True)
+    rec["collective_ms"] = ranks[0]["collective_ms"]
+    print("   gloo collectives of float32 on the card over the two ranks' "
+          "model group, ms each: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in rec["collective_ms"].items())
+          + f" [{smi}]", flush=True)
+    for label, arch, layers in TP_FULL:
+        r0, r1 = ranks[0][label], ranks[1][label]
+        one, two = r0["one"], r0["two"]
+        print(f"   {label} {arch} at full width, {layers} layer(s), bf16, "
+              f"1 x {TP_PROMPT} prefill into {TP_MAX_LEN} positions and "
+              f"{TP_STEPS} decode steps: 1 x 2 vs 1 x 1 relative L2 "
+              f"{r0['rel_l2']:.4e} (limit {r0['tol']:.4f}), max |err| "
+              f"{r0['max_abs_err']:.4f} [{smi}]", flush=True)
+        for name, o, peaks in (("1 x 1", one, [one["peak_gib"]]),
+                               ("1 x 2", two, [two["peak_gib"],
+                                               r1["two"]["peak_gib"]])):
+            print(f"     {name}: init {o['init_s']:.3f} s, prefill "
+                  f"{o['prefill_ms']:.3f} ms, decode "
+                  f"{o['decode_ms_per_step']:.3f} ms/step, "
+                  f"{o['kernels_per_step']:.1f} kernels a step, "
+                  f"collectives {100 * o['collective_share']:.1f}% of the "
+                  f"wall, weights {o['weights_gib']:.3f} GiB a rank, peak "
+                  f"{', '.join(f'{p:.3f}' for p in peaks)} GiB a rank",
+                  flush=True)
+        rec[label] = {"arch": arch, "layers": layers, "rel_l2": r0["rel_l2"],
+                      "tol": r0["tol"], "one": one, "two": two,
+                      "two_rank1": r1["two"]}
+    e0, e1 = ranks[0]["(e)"], ranks[1]["(e)"]
+    arch, layers, b, s, steps = TP_TRAIN
+    print(f"   (e) {arch} at full width, {layers} layers, bf16, {steps} train "
+          f"steps at {b} x {s}: losses 1 x 1 {e0['one']['losses']} vs 1 x 2 "
+          f"{e0['two']['losses']} (limit {e0['loss_rtol']:.4g} relative); "
+          f"clip norms {e0['one']['grad_norms']} vs {e0['two']['grad_norms']}"
+          f" (limit {e0['norm_rtol']:.4g}); step ms 1 x 1 "
+          f"{e0['one']['step_ms']}, 1 x 2 {e0['two']['step_ms']}; peak "
+          f"{e0['one']['peak_gib']:.3f} GiB vs {e0['two']['peak_gib']:.3f} "
+          f"and {e1['two']['peak_gib']:.3f} GiB a rank [{smi}]", flush=True)
+    rec["(e)"] = {"arch": arch, "layers": layers, "one": e0["one"],
+                  "two": e0["two"], "two_rank1": e1["two"],
+                  "loss_rtol": e0["loss_rtol"], "norm_rtol": e0["norm_rtol"]}
+    return rec
+
+
 def main() -> int:
     # phase 17 (d) runs under torch.use_deterministic_algorithms, which
     # wants cuBLAS's fixed workspace before the first handle exists
@@ -3665,6 +4139,17 @@ def main() -> int:
     train = _training(dev, smi)
     _done(t0)
 
+    # ---- 18. tensor and expert parallelism ---------------------------------
+    t0 = _phase("18. tensor and expert parallelism: 10 reduced archs on "
+                "(1, 2) and (2, 2); arctic-480b, llama4-maverick and "
+                "qwen3-32b (full depth) serving and qwen3-8b training at "
+                "full width on (1, 2) against (1, 1)")
+    torch.cuda.empty_cache()
+    print(f"   card: {smi}; allocated in this process at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    tensor_parallel = _tensor_parallel(smi)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -3758,6 +4243,7 @@ def main() -> int:
     print(json.dumps(record))
     print(json.dumps({"models": zoo}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"tensor_parallel": tensor_parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

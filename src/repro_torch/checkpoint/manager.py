@@ -24,6 +24,15 @@ not, on any world size: the JAX package's "elastic restart = same
 checkpoint, different mesh".  ``restore`` copies into the tensors of
 ``tree_like`` in place (casting to their dtype) and returns it.
 
+Over a 'model' axis (tensor parallelism) the checkpoint still holds the
+full arrays, as a 1 x 1 run writes them: ``save`` all-gathers each split
+leaf over the model group (one leaf at a time, straight to the host) and
+``restore`` keeps this rank's shard of each, so a checkpoint saved on any
+model axis restores on any other.  ``shardings`` (``Model.shardings()``)
+say which leaves are split; a ``Model`` in the tree gives its own by
+default, and a leaf takes the sharding of the parameter its key ends
+with (``opt.m.<key>`` that of ``<key>``).
+
 ``PreemptionGuard`` converts SIGTERM (the cloud preemption signal) into a
 "checkpoint now, then exit" request the train loop polls once per step.
 """
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from .._device import process_index_and_count
+from ..parallel import sharding as shd
 from ..train.optimizer import AdamWState
 
 
@@ -79,6 +89,37 @@ def _flatten(tree: Any) -> List[Tuple[str, Any]]:
     return flat
 
 
+def _default_shardings(tree: Any):
+    """The shardings of the first model over a 'model' axis in ``tree``
+    (itself, or an item of a tuple, list or dict); None where none is."""
+    items = (tree.values() if isinstance(tree, Mapping) else
+             tree if isinstance(tree, (tuple, list)) else (tree,))
+    for item in items:
+        mesh = getattr(item, "mesh", None)
+        if (isinstance(item, torch.nn.Module) and mesh is not None
+                and shd.model_size(mesh) > 1):
+            return item.shardings()
+    return None
+
+
+def _param_key(shardings, key: str) -> Optional[str]:
+    """The parameter key of checkpoint leaf ``key``: its longest dotted
+    suffix that ``shardings`` name (``opt.m.<key>`` -> ``<key>``)."""
+    if shardings is None:
+        return None
+    parts = key.split(".")
+    for i in range(len(parts)):
+        if ".".join(parts[i:]) in shardings:
+            return ".".join(parts[i:])
+    return None
+
+
+def _model_dim(shardings, key: str) -> Optional[int]:
+    """The dim of checkpoint leaf ``key`` split over 'model'."""
+    pk = _param_key(shardings, key)
+    return None if pk is None else shardings.model_dim(pk)
+
+
 def _to_host(v) -> Tuple[np.ndarray, str]:
     """(numpy array, manifest dtype); bf16 as its int16 bits.  A copy, so
     that training may go on updating the tensor while a writer thread
@@ -109,16 +150,27 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, shardings: Any = None) -> None:
         rank, world = process_index_and_count()
         flat = _flatten(tree)
-        if rank != 0:
-            return              # replicated: rank 0 writes every array
+        if shardings is None:
+            shardings = _default_shardings(tree)
+        ax = None if shardings is None else shd.mesh_model_axis(
+            shardings.mesh)
         # Pull to host NOW (one copy); disk IO happens in the background.
+        # Every rank joins the gathers of split leaves; rank 0 writes.
         host, dtypes = [], {}
         for k, v in flat:
-            arr, dtypes[k] = _to_host(v)
-            host.append((k, arr))
+            dim = _model_dim(shardings, k) if ax is not None else None
+            if dim is not None:
+                from ..parallel.collectives import all_gather
+                v = all_gather(v.detach(), dim, ax)
+            if rank == 0:
+                arr, dtypes[k] = _to_host(v)
+                host.append((k, arr))
+            del v
+        if rank != 0:
+            return
         manifest = {
             "step": step,
             "time": time.time(),
@@ -183,12 +235,15 @@ class CheckpointManager:
                 shardings: Any = None) -> Tuple[Any, dict]:
         """Copy the checkpoint of ``step`` (the latest by default) into the
         tensors of ``tree_like``, in place; returns ``(tree_like,
-        manifest)``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): re-sharding onto a model axis waits "
-                "for the port's tensor parallelism (ROADMAP queue 1 item 4 "
-                "(ii)); replicated restores need no shardings")
+        manifest)``.  ``shardings`` (``Model.shardings()``, by default a
+        model's in ``tree_like``): the leaves they split over 'model'
+        take this rank's shard of the full array."""
+        if shardings is None:
+            shardings = _default_shardings(tree_like)
+        if shardings is not None and not isinstance(shardings,
+                                                    shd.Shardings):
+            raise TypeError("restore: shardings are Model.shardings(), a "
+                            f"{type(shardings).__name__} names no mesh")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -204,6 +259,10 @@ class CheckpointManager:
             if k not in data:
                 raise KeyError(f"checkpoint step {step} has no {k!r}")
             src = _from_host(data[k], manifest["dtypes"][k])
+            dim = _model_dim(shardings, k)
+            if dim is not None:
+                src = shd.local_shard(src, shardings[_param_key(shardings, k)],
+                                      shardings.mesh)
             if tuple(src.shape) != tuple(like.shape):
                 raise ValueError(f"checkpoint {k}: shape {tuple(src.shape)}, "
                                  f"the target {tuple(like.shape)}")

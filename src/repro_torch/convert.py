@@ -40,10 +40,12 @@ def dense_db_from_reference(vocab_items: Sequence[Hashable], bits: np.ndarray,
 
 
 def model_from_reference(cfg, params: Mapping[str, Any], *,
-                         device: DeviceLike = None):
+                         device: DeviceLike = None, mesh: Any = None):
     """The JAX package's parameter tree for ``cfg`` (every leaf a numpy
     array: ``jax.tree.map(np.asarray, params)``) as the port's ``Model`` on
     ``device``, in ``cfg.dtype``.  The same inputs then give the same logits.
+    Over ``mesh`` (a ``DeviceMesh``) the model keeps this rank's shards of
+    each array (``Model.shardings``; see ``Model``).
 
     Key map (JAX tree path -> port ``state_dict`` key).  Leaves outside the
     layer stacks keep their names: ``tok_embed``, ``lm_head``,
@@ -62,13 +64,24 @@ def model_from_reference(cfg, params: Mapping[str, Any], *,
     leaf keeps its JAX shape and axis order."""
     from .models.registry import Model
 
-    model = Model(cfg, device=device)
+    model = Model(cfg, device=device, mesh=mesh)
     state = _check_keys("model_from_reference", reference_state(cfg, params),
                         model)
     with torch.no_grad():
         for key, t in model.named_parameters():
             t.copy_(state[key])
     return model
+
+
+def _local(model, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Full arrays keyed like the model's parameters -> this rank's
+    shards (the arrays themselves without a mesh)."""
+    if model.mesh is None:
+        return state
+    from .parallel.sharding import local_shard
+    pl = model.shardings()
+    return {k: local_shard(v, pl[k], model.mesh) if k in pl else v
+            for k, v in state.items()}
 
 
 def reference_state(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -106,6 +119,7 @@ def reference_state(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def _check_keys(who: str, state: Dict[str, torch.Tensor], model):
+    state = _local(model, state)
     want = dict(model.named_parameters())
     if set(state) != set(want):
         raise KeyError(f"{who}: keys differ: missing "
@@ -122,8 +136,8 @@ def opt_state_from_reference(cfg, opt_state: Any, model):
     """The JAX package's ``AdamWState`` (``step``, and ``m`` and ``v``
     stacked like the parameters; numpy leaves) as the port's, on the
     model's device: the moments keep their dtype (the config's
-    ``state_dtype``) and take the parameters' keys by the key map of
-    ``model_from_reference``."""
+    ``state_dtype``), take the parameters' keys by the key map of
+    ``model_from_reference`` and, over the model's mesh, its shards."""
     from .train.optimizer import AdamWState
 
     step, m, v = (opt_state.step, opt_state.m, opt_state.v) \

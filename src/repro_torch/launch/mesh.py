@@ -60,6 +60,39 @@ def make_host_mesh(data: int = 1, model: int = 1, *,
                             mesh_dim_names=("data", "model"))
 
 
+def join_group(data: int, model: int, backend: str, launcher: str) -> bool:
+    """Join the ``data * model``-rank group ``torchrun`` describes in the
+    environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), or make a one-rank group where the mesh is 1 x 1 and
+    no such environment is set; True when the group was made here (the
+    caller destroys it).  Exits when the world size is not the mesh's."""
+    import os
+
+    import torch.distributed as dist
+
+    n = data * model
+    made = False
+    if not dist.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        elif n == 1:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        else:
+            flag = "--data-mesh" if model == 1 else "--model-mesh"
+            size = data if model == 1 else model
+            raise SystemExit(
+                f"{flag} {size} needs {n} ranks: launch with torchrun "
+                f"--nproc-per-node {n} -m repro_torch.launch.{launcher} ...")
+        made = True
+    if dist.get_world_size() != n:
+        if made:
+            dist.destroy_process_group()
+        raise SystemExit(f"a {data} x {model} mesh: the process group has "
+                         f"{dist.get_world_size()} ranks")
+    return made
+
+
 def dp_size(mesh) -> int:
     """Data-parallel size: 'data' x 'pod' of a ``DeviceMesh`` or a
     ``(sizes, names)`` pair."""

@@ -11,12 +11,18 @@ prompts (and the encoder-decoder's frames) from
 overrides the config's.  Prints the JAX launcher's three lines: the
 prefill time, the decode steps with tokens/s, and the first row's tokens.
 
-Only the 1 x 1 mesh is served: ``--data-mesh`` / ``--model-mesh`` above 1
-wait for the mesh slice (``parallel/``) and raise ``NotImplementedError``.
+``--data-mesh D --model-mesh M`` serves on a (D, M) mesh over a
+``torch.distributed`` group of D * M ranks, the one ``torchrun`` describes
+in the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``): each model group holds the model split over its M ranks
+(``Model(mesh=)``) and each data rank serves its own rows of the batch.
+The backend is gloo on ``cpu`` and NCCL on ``cuda`` (``--dist-backend
+gloo`` lets ranks share one card).  Rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
@@ -89,18 +95,44 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
                     choices=("bfloat16", "float16", "float32"),
                     help="parameter and activation dtype (default: the "
                          "config's)")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="process-group backend of a mesh above 1 x 1 "
+                         "(default: gloo on cpu, nccl on cuda)")
     args = ap.parse_args(argv)
-    if args.data_mesh > 1 or args.model_mesh > 1:
-        raise NotImplementedError(
-            f"serve: a {args.data_mesh} x {args.model_mesh} mesh waits for "
-            "the port's mesh slice (parallel/, with training); this launcher "
-            "serves the 1 x 1 mesh")
 
+    from .._device import resolve_device
+    dev = resolve_device(args.device)
+    if args.data_mesh * args.model_mesh == 1:
+        return _serve(args, dev, None)
+
+    import torch.distributed as dist
+
+    from .mesh import join_group, make_host_mesh
+    backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if args.batch % args.data_mesh:
+        raise SystemExit(f"--batch {args.batch} does not split over "
+                         f"--data-mesh {args.data_mesh}")
+    if dev.type == "cuda" and dev.index is None:
+        rank = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    made = join_group(args.data_mesh, args.model_mesh, backend, "serve")
+    try:
+        mesh = make_host_mesh(args.data_mesh, args.model_mesh,
+                              device_type="cpu" if backend == "gloo"
+                              else dev.type)
+        return _serve(args, dev, mesh)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _serve(args, dev: torch.device, mesh) -> ServeRun:
     from ..models import get_model
 
-    model = get_model(args.arch, reduced=args.reduced, device=args.device,
-                      dtype=args.dtype)
-    cfg, dev = model.cfg, model.device
+    model = get_model(args.arch, reduced=args.reduced, device=dev,
+                      dtype=args.dtype, mesh=mesh)
+    cfg = model.cfg
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
@@ -111,13 +143,23 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
         frames = torch.as_tensor(
             rng.normal(size=(args.batch, args.prompt_len, cfg.frontend_dim)),
             dtype=model.dtype, device=dev)
+    rank = 0
+    if mesh is not None:            # this data rank's rows
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        n = args.batch // args.data_mesh
+        row = mesh.get_local_rank("data") * n
+        prompts = prompts[row:row + n]
+        frames = None if frames is None else frames[row:row + n]
 
     out = generate(model, prompts, args.gen, frames=frames)
-    print(f"prefill: {args.batch}x{args.prompt_len} in {out.prefill_s:.2f}s")
-    steps = args.gen - 1
-    print(f"decoded {steps} steps in {out.decode_s:.2f}s "
-          f"({args.batch * steps / max(out.decode_s, 1e-9):,.1f} tok/s)")
-    print("sample:", out.tokens[0, :16].tolist())
+    if rank == 0:
+        b = prompts.shape[0]
+        print(f"prefill: {b}x{args.prompt_len} in {out.prefill_s:.2f}s")
+        steps = args.gen - 1
+        print(f"decoded {steps} steps in {out.decode_s:.2f}s "
+              f"({b * steps / max(out.decode_s, 1e-9):,.1f} tok/s)")
+        print("sample:", out.tokens[0, :16].tolist())
     return ServeRun(model, prompts, frames, out)
 
 

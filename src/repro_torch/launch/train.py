@@ -24,13 +24,16 @@ global norm before the clip, ``lr`` the schedule's rate for the step,
 ``tok/s`` the global batch's tokens over the step's host wall time.
 
 ``--device`` defaults to the card and raises without one.  ``--data-mesh
-D`` runs replicated data parallelism over a ``torch.distributed`` group:
-the one ``torchrun`` describes in the environment (``RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or, for D = 1 and no
-such environment, a one-rank group made here.  The backend is gloo on
+D --model-mesh M`` runs on a (D, M) mesh over a ``torch.distributed``
+group of D * M ranks: the one ``torchrun`` describes in the environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or, for a
+1 x 1 mesh and no such environment, a one-rank group made here.  Each
+model group holds one copy of the model split over its M ranks (tensor
+and expert parallelism, ``Model(mesh=)``) and takes one data slice;
+gradients are averaged over the D data ranks.  The backend is gloo on
 ``cpu`` and NCCL on ``cuda`` (``--dist-backend gloo`` lets ranks share one
-card).  ``--model-mesh`` above 1 raises ``NotImplementedError``: tensor
-parallelism is ROADMAP queue 1 item 4 (ii).
+card).  Checkpoints hold the full arrays whatever the mesh, so a run
+resumes on any other.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from ..data import TokenPipeline
 from ..models import get_model
 from ..parallel import sharding as shd
 from ..train import AdamWConfig, init_state, make_train_step
-from .mesh import make_host_mesh
+from .mesh import join_group, make_host_mesh
 
 
 def _parse(argv):
@@ -78,22 +81,6 @@ def _parse(argv):
     return ap.parse_args(argv)
 
 
-def _join_group(data: int, backend: str) -> bool:
-    """Join (or make) the data-parallel group; True when made here."""
-    if dist.is_initialized():
-        return False
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
-    elif data == 1:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    else:
-        raise SystemExit(
-            f"--data-mesh {data} needs {data} ranks: launch with torchrun "
-            f"--nproc-per-node {data} -m repro_torch.launch.train ...")
-    return True
-
-
 def _agree(flag: bool, group, device: torch.device) -> bool:
     """True on every rank when any rank's ``flag`` is set."""
     t = torch.tensor([1.0 if flag else 0.0], device=device)
@@ -103,28 +90,19 @@ def _agree(flag: bool, group, device: torch.device) -> bool:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parse(argv)
-    if args.model_mesh > 1:
-        raise NotImplementedError(
-            f"train: --model-mesh {args.model_mesh} needs the port's tensor "
-            "parallelism (ROADMAP queue 1 item 4 (ii)); this launcher runs "
-            "replicated data parallelism over --data-mesh")
-
     dev = resolve_device(args.device)
     backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda" and dev.index is None:
         rank = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    made = _join_group(args.data_mesh, backend)
+    made = join_group(args.data_mesh, args.model_mesh, backend, "train")
     try:
-        if dist.get_world_size() != args.data_mesh:
-            raise SystemExit(f"--data-mesh {args.data_mesh}: the process "
-                             f"group has {dist.get_world_size()} ranks")
-        # the mesh is read for its shape; gloo ranks sharing a card mesh
-        # on the host
-        mesh = make_host_mesh(args.data_mesh, 1, device_type="cpu"
-                              if backend == "gloo" else dev.type)
-        _train(args, dev, mesh, dist.group.WORLD)
+        # gloo ranks sharing a card mesh on the host
+        mesh = make_host_mesh(args.data_mesh, args.model_mesh,
+                              device_type="cpu" if backend == "gloo"
+                              else dev.type)
+        _train(args, dev, mesh, mesh["data"].get_group())
     finally:
         if made:
             dist.destroy_process_group()
@@ -132,7 +110,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 def _train(args, dev, mesh, group) -> None:
     rank = dist.get_rank()
-    model = get_model(args.arch, reduced=args.reduced, device=dev)
+    model = get_model(args.arch, reduced=args.reduced, device=dev,
+                      mesh=mesh)
     cfg = model.cfg
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(1, args.steps // 20),
@@ -160,7 +139,8 @@ def _train(args, dev, mesh, group) -> None:
         n_tok = args.batch * args.seq
         for step in range(start_step, args.steps):
             t0 = time.time()
-            batch = pipe.host_slice(step)
+            batch = pipe.host_slice(step, mesh.get_local_rank("data"),
+                                    args.data_mesh)
             model, opt_state, metrics = step_fn(model, opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0
@@ -173,7 +153,7 @@ def _train(args, dev, mesh, group) -> None:
                       f"{n_tok/dt:,.0f} tok/s"
                       f"{'  [straggler]' if slow else ''}", flush=True)
             should_ckpt = mgr and (step + 1) % args.ckpt_every == 0
-            if _agree(guard.requested, group, dev):
+            if _agree(guard.requested, dist.group.WORLD, dev):
                 if rank == 0:
                     print("SIGTERM received: checkpointing and exiting",
                           flush=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..parallel import sharding as shd
 from .attention import (attn_decode, attn_forward, attn_specs,
                         cross_attn_forward)
 from .attention import init_cache as init_kv_cache
@@ -67,14 +68,16 @@ def layer_forward(p, x, cfg, kind: str, mlp_kind: str, positions,
         h = rmsnorm(x, p.ln_cross, cfg.norm_eps)
         x = x + cross_attn_forward(p.cross, h, enc_kv, cfg, enc_positions)
     h = rmsnorm(x, p.ln2, cfg.norm_eps)
-    return x + _mlp(p, h, cfg, mlp_kind)
+    x = x + _mlp(p, h, cfg, mlp_kind)
+    return shd.constrain(x, "act_batch", "act_seq", "act_embed")
 
 
 def layer_decode(p, x, cfg, kind: str, mlp_kind: str, cache, pos: int,
-                 enc_kv: Optional[Tuple] = None, enc_positions=None):
+                 enc_kv: Optional[Tuple] = None, enc_positions=None,
+                 split: bool = False):
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if kind == "attn":
-        a, cache = attn_decode(p.attn, h, cache, cfg, pos)
+        a, cache = attn_decode(p.attn, h, cache, cfg, pos, split=split)
     else:
         a, cache = ssm_forward(p.ssm, h, cfg, state=cache, pos=pos)
     x = x + a

@@ -8,8 +8,16 @@ tokens at capacity:
     (groups, tokens, experts, capacity).
   * 'gather' — tokens scattered by slot into (groups, experts, capacity, d)
     buffers, combined by a gather.
-Without a mesh the data-parallel size is 1, so ``_group_count`` starts from
-``cfg.moe_groups_per_dp``.
+``_group_count`` keeps the JAX package's data-parallel factor: the global
+batch splits into ``dp * moe_groups_per_dp`` groups (halved until they
+divide it), of which each data rank holds its own.
+
+Over a 'model' axis the experts are split (expert parallelism, the JAX
+package's ``moe.py:40-68``): routing runs whole on every rank, each rank
+dispatches to and runs only its own experts, and the combine, contracting
+over the split expert dim, ends in one all-reduce.  Where the axis does
+not divide the experts, the spec splits their ffn dim instead and the
+expert outputs are all-reduced before the combine.
 
 Routing takes ``torch.topk`` where the JAX package takes
 ``jax.lax.top_k``.  On equal router logits the two may order experts
@@ -25,6 +33,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as coll
+from ..parallel import sharding as shd
 from .common import ParamSpec
 
 
@@ -45,10 +55,18 @@ def _capacity(tokens_per_group: int, cfg) -> int:
 
 
 def _group_count(n_tokens: int, cfg) -> int:
-    g = cfg.moe_groups_per_dp          # data-parallel size 1: no mesh yet
-    while g > 1 and n_tokens % g != 0:
+    """Groups of this rank's ``n_tokens``: the JAX package's count over the
+    global batch (``dp`` ranks' tokens), divided by ``dp``."""
+    sizes = shd.active_mesh_shape()
+    dp = sizes.get("data", 1) * sizes.get("pod", 1)
+    g = dp * cfg.moe_groups_per_dp
+    while g > 1 and (n_tokens * dp) % g != 0:
         g //= 2
-    return max(g, 1)
+    g = max(g, 1)
+    if g % dp:
+        raise ValueError(f"{cfg.name}: {g} MoE groups of {n_tokens * dp} "
+                         f"tokens straddle {dp} data ranks")
+    return g // dp
 
 
 def _route(p, xg: torch.Tensor, cfg):
@@ -60,10 +78,20 @@ def _route(p, xg: torch.Tensor, cfg):
 
 
 def _expert_ffn(p, inp: torch.Tensor) -> torch.Tensor:
-    """inp (G,E,C,D) -> (G,E,C,D)."""
+    """inp (G,E,C,D) -> (G,E,C,D); with the experts split, this rank's
+    E / M experts in and out."""
+    ed = p.shard_dim("w_gate")          # 0: experts split; 2: their ffn
+    inp = shd.constrain(inp, "act_groups", "act_experts", None, None,
+                        shard=1 if ed == 0 else None)
+    if ed == 2:
+        inp = coll.copy_to_model(inp)
     h = F.silu(torch.einsum("gecd,edf->gecf", inp, p.w_gate))
     h = h * torch.einsum("gecd,edf->gecf", inp, p.w_up)
-    return torch.einsum("gecf,efd->gecd", h, p.w_down)
+    h = shd.constrain(h, "act_groups", "act_experts", None, "act_ffn",
+                      shard={0: 1, 2: 3}.get(ed))
+    out = torch.einsum("gecf,efd->gecd", h, p.w_down)
+    return shd.constrain(out, "act_groups", "act_experts", None, None,
+                         shard=1 if ed == 0 else None, partial=ed == 2)
 
 
 def moe_forward(p, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -73,7 +101,7 @@ def moe_forward(p, x: torch.Tensor, cfg) -> torch.Tensor:
     g = _group_count(n_tokens, cfg)
     t = n_tokens // g
     cap = _capacity(t, cfg)
-    xg = x.reshape(g, t, d)
+    xg = shd.constrain(x.reshape(g, t, d), "act_groups", None, None)
     weights, ids = _route(p, xg, cfg)
     if cfg.moe_impl == "gather":
         yg = _dispatch_gather(p, xg, weights, ids, cfg, cap)
@@ -108,9 +136,17 @@ def _dispatch_einsum(p, xg, weights, ids, cfg, cap):
                             oe * keep.to(xg.dtype)[..., None], oc)
     combine = torch.einsum("gtke,gtkc,gtk->gtec", oe, oc,
                            weights * keep.to(weights.dtype))
+    split = p.shard_dim("w_gate") == 0
+    if split:           # this rank's experts: dispatch, run, combine
+        dispatch = shd.constrain(dispatch, "act_groups", None, "act_experts",
+                                 None)
+        combine = shd.constrain(combine, "act_groups", None, "act_experts",
+                                None)
+        xg = coll.copy_to_model(xg)
     inp = torch.einsum("gtec,gtd->gecd", dispatch, xg)
     out = _expert_ffn(p, inp)
-    return torch.einsum("gtec,gecd->gtd", combine, out)
+    y = torch.einsum("gtec,gecd->gtd", combine, out)
+    return shd.constrain(y, "act_groups", None, None, partial=split)
 
 
 def _dispatch_gather(p, xg, weights, ids, cfg, cap):
@@ -125,7 +161,13 @@ def _dispatch_gather(p, xg, weights, ids, cfg, cap):
     buf = torch.zeros((g, e * cap + 1, d), dtype=xg.dtype, device=xg.device)
     buf.scatter_add_(1, slot[..., None].expand(g, t * k, d), xk)
     inp = buf[:, :e * cap].reshape(g, e, cap, d)
-    out = _expert_ffn(p, inp).reshape(g, e * cap, d)
+    split = p.shard_dim("w_gate") == 0
+    if split:           # this rank's experts in, every expert's output out
+        inp = shd.constrain(inp, "act_groups", "act_experts", None, None)
+    out = _expert_ffn(p, inp)
+    if split:
+        out = shd.constrain(out, "act_groups", None, None, None, shard=1)
+    out = out.reshape(g, e * cap, d)
     out = torch.cat([out, out.new_zeros((g, 1, d))], dim=1)
     # gather back per (token, choice) and weight
     yk = torch.gather(out, 1, slot[..., None].expand(g, t * k, d))

@@ -16,6 +16,15 @@ forward finite but makes the gradient 0 * inf = NaN once a chunk's decay
 passes e^88 (mamba2-2.7b's chunks of 256 at TRAIN_4K).  The port masks it
 to -inf before the exp: the same forward, bit for bit, and a finite
 gradient (ROADMAP §3).
+
+Over a 'model' axis that divides the heads (the JAX package's
+``ssm.py:132-159, 202-205``): ``wz``, ``wx``, ``conv_x`` and ``out_proj``
+hold this rank's slice of the inner dim, ``wdt``, ``dt_bias``, ``A_log``
+and ``D`` its heads; ``wB``/``wC`` (the groups' B and C) stay whole and
+each rank keeps the heads it runs.  The gated RMSNorm normalises over the
+whole inner dim, so its sum of squares is all-reduced; ``out_proj``'s
+partial sums meet in one all-reduce.  The decode state is split the same
+way: ``ssd`` by heads, ``conv_x`` by channels.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as coll
+from ..parallel import sharding as shd
 from .common import ParamSpec, rmsnorm
 
 
@@ -125,15 +136,50 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     return y, s
 
 
-def _head_expand(t: torch.Tensor, nh: int) -> torch.Tensor:
-    """(B,L,G,N) group tensor -> (B,L,nh,N) head tensor."""
-    return torch.repeat_interleave(t, nh // t.shape[2], dim=2)
-
-
 def _dt_and_A(p, dt: torch.Tensor, dtype: torch.dtype):
     dt = F.softplus(dt.float() + p.dt_bias.float()).to(dtype)
     A = (-torch.exp(p.A_log.float())).to(dtype)
     return dt, A
+
+
+def split(p, cfg) -> bool:
+    """Whether this rank holds a slice of the heads and the inner dim."""
+    heads, inner = p.shard_dim("wdt") is not None, p.shard_dim("wx") is not None
+    if heads != inner:
+        raise ValueError(f"{cfg.name}: a model axis that splits the inner "
+                         f"dim ({cfg.d_inner}) but not the {cfg.ssm_heads} "
+                         "heads leaves no head whole on a rank")
+    return heads
+
+
+def projections(p, xin: torch.Tensor, cfg):
+    """z, x (this rank's inner slice), B, C (every group) and dt (this
+    rank's heads) of ``xin`` (..., D), before the convolutions."""
+    xl = coll.copy_to_model(xin) if split(p, cfg) else xin
+    return (xl @ p.wz, xl @ p.wx, _proj_groups(xin, p.wB),
+            _proj_groups(xin, p.wC), xl @ p.wdt)
+
+
+def local_heads(t: torch.Tensor, nh: int, dim: int) -> torch.Tensor:
+    """A group tensor expanded to every head along ``dim``, then the heads
+    this rank runs."""
+    t = torch.repeat_interleave(t, nh // t.shape[dim], dim=dim)
+    logical = [None] * t.dim()
+    logical[dim] = "act_ssm_heads"
+    return shd.constrain(t, *logical)
+
+
+def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, cfg) -> torch.Tensor:
+    """RMSNorm of y * silu(z) over the whole inner dim: over a split inner
+    dim the sum of squares is all-reduced."""
+    y = y * F.silu(z)
+    if not split(p, cfg):
+        return rmsnorm(y, p.gate_norm, cfg.norm_eps)
+    # the whole sum feeds this rank's slice again: its gradient is partial
+    ss = coll.copy_to_model(coll.reduce_from_model(
+        torch.sum(torch.square(y.float()), dim=-1, keepdim=True)))
+    inv = torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps).to(y.dtype)
+    return y * inv * shd.constrain(p.gate_norm, "act_ffn")
 
 
 def ssm_forward(p, xin: torch.Tensor, cfg,
@@ -146,32 +192,39 @@ def ssm_forward(p, xin: torch.Tensor, cfg,
         return _ssm_decode(p, xin, cfg, state, pos)
     b, s, d = xin.shape
     nh, hd = cfg.ssm_heads, cfg.ssm_headdim
+    sp = split(p, cfg)
 
-    z = xin @ p.wz
-    x = xin @ p.wx
-    Bm = _proj_groups(xin, p.wB)
-    Cm = _proj_groups(xin, p.wC)
-    dt = xin @ p.wdt
+    xin = shd.constrain(xin, "act_batch", None, "act_embed")
+    z, x, Bm, Cm, dt = projections(p, xin, cfg)
 
     x = F.silu(_causal_conv(x, p.conv_x))
     Bm = F.silu(_causal_conv(Bm, p.conv_B))
     Cm = F.silu(_causal_conv(Cm, p.conv_C))
+    x = shd.constrain(x, "act_batch", None, "act_ffn",
+                      shard=2 if sp else None)
     dt, A = _dt_and_A(p, dt, xin.dtype)
 
-    xh = x.reshape(b, s, nh, hd)
-    y, _ = ssd_scan(xh, dt, A, _head_expand(Bm, nh), _head_expand(Cm, nh),
-                    cfg.ssm_chunk)
+    xh = x.reshape(b, s, -1, hd)
+    xh = shd.constrain(xh, "act_batch", None, "act_ssm_heads", None,
+                       shard=2 if sp else None)
+    y, _ = ssd_scan(xh, dt, A, local_heads(Bm, nh, 2),
+                    local_heads(Cm, nh, 2), cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * xh
-    y = y.reshape(b, s, nh * hd)
-    y = rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
-    return (y.reshape(b * s, nh * hd) @ p.out_proj).reshape(b, s, d)
+    y = _gated_norm(p, y.reshape(b, s, -1), z, cfg)
+    out = (y.reshape(b * s, -1) @ p.out_proj).reshape(b, s, d)
+    return shd.constrain(out, "act_batch", "act_seq", "act_embed",
+                         partial=sp)
 
 
 def init_state(cfg, batch: int, dtype: torch.dtype,
                device) -> Dict[str, torch.Tensor]:
-    """One SSM layer's zeroed decode state."""
+    """One SSM layer's zeroed decode state; over a 'model' axis that
+    divides the heads, this rank's heads and inner channels."""
     nh, hd, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     g, w, di = cfg.ssm_groups, cfg.conv_width, cfg.d_inner
+    if coll.shard_range(nh) is not None:
+        m = coll.model_rank_and_size()[1]
+        nh, di = nh // m, di // m
     shapes = {"ssd": (batch, nh, n, hd), "conv_x": (batch, w - 1, di),
               "conv_B": (batch, w - 1, g, n), "conv_C": (batch, w - 1, g, n)}
     return {k: torch.zeros(v, dtype=dtype, device=device)
@@ -183,11 +236,7 @@ def _ssm_decode(p, xin, cfg, state, pos):
     b = xin.shape[0]
     nh, hd = cfg.ssm_heads, cfg.ssm_headdim
     xt = xin[:, 0]
-    z = xt @ p.wz
-    x = xt @ p.wx
-    Bm = _proj_groups(xt, p.wB)
-    Cm = _proj_groups(xt, p.wC)
-    dt = xt @ p.wdt
+    z, x, Bm, Cm, dt = projections(p, xt, cfg)
 
     cx, x = _conv_step(state["conv_x"], x, p.conv_x)
     cB, Bm = _conv_step(state["conv_B"], Bm, p.conv_B)
@@ -195,14 +244,14 @@ def _ssm_decode(p, xin, cfg, state, pos):
     x, Bm, Cm = F.silu(x), F.silu(Bm), F.silu(Cm)
     dt, A = _dt_and_A(p, dt, xin.dtype)
 
-    xh = x.reshape(b, nh, hd)
-    Bh = torch.repeat_interleave(Bm, nh // cfg.ssm_groups, dim=1)   # (B,nh,N)
-    Ch = torch.repeat_interleave(Cm, nh // cfg.ssm_groups, dim=1)
+    xh = x.reshape(b, -1, hd)
+    Bh = local_heads(Bm, nh, 1)                                    # (B,nh,N)
+    Ch = local_heads(Cm, nh, 1)
     decay = torch.exp(dt * A[None, :])                             # (B,nh)
     s_new = (state["ssd"] * decay[..., None, None] +
              torch.einsum("bhn,bhp->bhnp", Bh, xh * dt[..., None]))
     y = torch.einsum("bhn,bhnp->bhp", Ch, s_new) + p.D[None, :, None] * xh
-    y = y.reshape(b, nh * hd)
-    y = rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
-    out = (y @ p.out_proj)[:, None, :]
+    y = _gated_norm(p, y.reshape(b, -1), z, cfg)
+    out = shd.constrain((y @ p.out_proj)[:, None, :], "act_batch", None,
+                        "act_embed", partial=split(p, cfg))
     return out, {"ssd": s_new, "conv_x": cx, "conv_B": cB, "conv_C": cC}

@@ -18,7 +18,17 @@ layer (``k``/``v`` of (B, max_len, KV, dh) for attention, ``ssd`` /
 ``conv_x`` / ``conv_B`` / ``conv_C`` for SSD); for the encoder-decoder also
 ``"enc_k"`` / ``"enc_v"`` (one (B, max_len, KV, dh) tensor per layer, the
 encoder's K/V zero-padded to max_len) and ``"enc_len"`` (an int).
-``decode_step`` updates it in place and returns it.
+``decode_step`` updates it in place and returns it.  Where the active
+'model' axis divides ``max_len`` the attention layers hold this rank's
+slice of the sequence and the cache says so (``"kv_split": True``;
+``attention.py``).
+
+Over a 'model' axis the residual stream between blocks stays replicated
+(the JAX package shards its sequence: ``transformer.py:82``,
+``blocks.py:63``; ROADMAP §3); every block joins its partial sums before
+the residual add.  ``forward`` returns the whole vocab (an all-gather of
+the head's slices); ``train_loss`` takes the cross-entropy on this rank's
+slice.
 """
 from __future__ import annotations
 
@@ -29,13 +39,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .attention import _project_qkv, cross_kv
+from ..parallel import sharding as shd
+from .attention import _project_qkv, cross_kv, kv_split, write_kv
 from .blocks import layer_cache, layer_decode, layer_forward, layer_kinds
 from .blocks import stack_specs
 from .common import (ParamSpec, embed_specs, embed_tokens, lm_logits, rmsnorm,
-                     softmax_xent)
+                     softmax_xent, vocab_start)
 from .config import ModelConfig
-from .ssm import _causal_conv, _dt_and_A, _head_expand, _proj_groups, ssd_scan
+from .ssm import _causal_conv, _dt_and_A, local_heads, ssd_scan
+from .ssm import projections as ssm_projections
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +79,7 @@ def _encode(p, frames: torch.Tensor, cfg) -> torch.Tensor:
     hidden states out."""
     enc_cfg = _enc_cfg(cfg)
     x = frames.to(p.enc_in_proj.dtype) @ p.enc_in_proj
+    x = shd.constrain(x, "act_batch", "act_seq", "act_embed")
     positions = torch.arange(frames.shape[1], device=x.device)
     for layer, (kind, mlp_kind) in zip(p.encoder, layer_kinds(enc_cfg)):
         x = _remat(cfg, layer_forward, layer, x, enc_cfg, kind, mlp_kind,
@@ -78,7 +91,8 @@ def _remat(cfg, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, checkpointed when ``cfg.remat`` and autograd
     records (see the module docstring)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
+        # the recompute runs in backward: inside this forward's context
+        return checkpoint(shd.bound(fn), *args, use_reentrant=False,
                           preserve_rng_state=False, **kwargs)
     return fn(*args, **kwargs)
 
@@ -103,21 +117,25 @@ def _encoder_out(p, frames, cfg):
 
 
 def forward(p, tokens: torch.Tensor, cfg,
-            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+            frames: Optional[torch.Tensor] = None,
+            gather: bool = True) -> torch.Tensor:
     """tokens (B,S) -> logits (B,S,Vpad).  ``frames`` feeds the encoder of
-    the enc-dec arch (stub frontend)."""
+    the enc-dec arch (stub frontend).  ``gather=False`` leaves the logits
+    as this rank's vocab slice where the head is split."""
     x = embed_tokens(p, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     enc_out, enc_positions = _encoder_out(p, frames, cfg)
     for layer, (kind, mlp_kind) in zip(p.decoder, layer_kinds(cfg)):
         x = _remat(cfg, _decoder_layer, layer, x, cfg, kind, mlp_kind,
                    positions, enc_out, enc_positions)
-    return lm_logits(p, x, cfg)
+    return lm_logits(p, x, cfg, gather=gather)
 
 
 def train_loss(p, batch: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
-    logits = forward(p, batch["tokens"], cfg, frames=batch.get("frames"))
-    return softmax_xent(logits, batch["labels"], cfg.vocab_size)
+    logits = forward(p, batch["tokens"], cfg, frames=batch.get("frames"),
+                     gather=False)
+    return softmax_xent(logits, batch["labels"], cfg.vocab_size,
+                        vocab_start=vocab_start(p))
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +147,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
     cache: Dict[str, Any] = {"layers": [
         layer_cache(cfg, kind, batch, max_len, dtype, device)
         for kind, _ in layer_kinds(cfg)]}
+    if kv_split(max_len):
+        cache["kv_split"] = True
     if cfg.encdec:
         shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
         for key in ("enc_k", "enc_v"):
@@ -161,8 +181,7 @@ def prefill(p, tokens: torch.Tensor, cfg, max_len: int,
         if kind == "attn":
             _, k, v = _project_qkv(layer.attn, hn, hn, cfg, positions,
                                    positions)
-            lc["k"][:, :s] = k.to(lc["k"].dtype)
-            lc["v"][:, :s] = v.to(lc["v"].dtype)
+            write_kv(lc, k, v, 0, cache.get("kv_split", False))
         else:
             cache["layers"][i] = _capture_ssm_state(layer.ssm, hn, cfg, lc)
         enc_kv = None
@@ -183,10 +202,7 @@ def _capture_ssm_state(p, xin, cfg, lcache):
     """Recompute the SSD state at end-of-prompt for the decode cache.
     ``xin`` is the ln1-normed layer input (identical to ssm_forward's)."""
     b, s, _ = xin.shape
-    x = xin @ p.wx
-    Bm = _proj_groups(xin, p.wB)
-    Cm = _proj_groups(xin, p.wC)
-    dt = xin @ p.wdt
+    _, x, Bm, Cm, dt = ssm_projections(p, xin, cfg)
 
     def conv_tail(t):  # last (W-1) raw inputs, left-padded for short prompts
         w1 = cfg.conv_width - 1
@@ -199,9 +215,9 @@ def _capture_ssm_state(p, xin, cfg, lcache):
     Cm = F.silu(_causal_conv(Cm, p.conv_C))
     dt, A = _dt_and_A(p, dt, xin.dtype)
     nh, hd = cfg.ssm_heads, cfg.ssm_headdim
-    xh = x.reshape(b, s, nh, hd)
-    _, s_final = ssd_scan(xh, dt, A, _head_expand(Bm, nh),
-                          _head_expand(Cm, nh), cfg.ssm_chunk)
+    xh = x.reshape(b, s, -1, hd)
+    _, s_final = ssd_scan(xh, dt, A, local_heads(Bm, nh, 2),
+                          local_heads(Cm, nh, 2), cfg.ssm_chunk)
     return {"ssd": s_final.to(lcache["ssd"].dtype),
             "conv_x": cx.to(lcache["conv_x"].dtype),
             "conv_B": cB.to(lcache["conv_B"].dtype),
@@ -223,5 +239,6 @@ def decode_step(p, cache: Dict[str, Any], token: torch.Tensor, pos: int, cfg):
             enc_kv = (cache["enc_k"][i], cache["enc_v"][i])
         x, cache["layers"][i] = layer_decode(
             layer, x, cfg, kind, mlp_kind, cache["layers"][i], pos,
-            enc_kv=enc_kv, enc_positions=enc_positions)
+            enc_kv=enc_kv, enc_positions=enc_positions,
+            split=cache.get("kv_split", False))
     return lm_logits(p, x, cfg), cache

@@ -12,18 +12,24 @@ into DTensor placements, one per mesh dim.
 
 ``constrain`` is where the two packages part.  XLA's GSPMD derives the
 collectives of a sharded program from constraints; eager PyTorch has none
-to derive them from.  So ``constrain`` is the identity outside a context,
-and over a mesh whose non-data axes are all 1.  Under the port's
-replicated data parallelism each rank already holds its own slice of the
-batch, so a 'data' axis above 1 leaves activations as they are.  A
-'model' (or 'pod') axis above 1 raises ``NotImplementedError``: tensor
-parallelism is ROADMAP queue 1 item 4 (ii).
+to derive them from, so the port's tensors are local shards and
+``constrain`` carries out, at the JAX package's call sites, the collective
+that gives a tensor the layout its spec names over the 'model' axis
+(``parallel/collectives.py``).  The caller says what layout the tensor has
+now: replicated (the default), sharded on a dim (``shard=d``) or a partial
+sum (``partial=True``).  The port departs from the JAX layouts on purpose
+in two places (ROADMAP §3): the residual stream's sequence (``act_seq``,
+sequence parallelism) stays replicated over 'model', and a 'data' (or
+'pod') axis shards no activation, since under the port's replicated data
+parallelism each rank already holds its own slice of the batch.
+Parameters are sharded over 'model' only (``local_shard``); FSDP over
+'data' is not applied.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -61,7 +67,12 @@ DEFAULT_RULES: Dict[Optional[str], Axes] = {
 }
 
 # mesh axes along which the port's eager code holds no sharded activation
-_LOCAL_AXES = ("data",)
+_LOCAL_AXES = ("data", "pod")
+# the one mesh axis the port shards tensors over
+MODEL = "model"
+# logical activation axes the port keeps replicated where the JAX package
+# shards them over 'model' (sequence parallelism; ROADMAP §3)
+PORT_REPLICATED = frozenset({"act_seq"})
 
 
 class _Ctx(threading.local):
@@ -102,6 +113,21 @@ def sharding_ctx(mesh: Any, rules: Optional[Dict[Optional[str], Axes]] = None):
 
 def active() -> bool:
     return _CTX.enabled and _CTX.mesh is not None
+
+
+def bound(fn):
+    """``fn`` made to run inside the context active now (or none): for
+    work that runs later, as a checkpointed layer's recompute runs in
+    backward, outside the context of its forward."""
+    saved = (_CTX.mesh, _CTX.rules) if active() else None
+
+    def run(*args, **kwargs):
+        if saved is None:
+            return fn(*args, **kwargs)
+        with sharding_ctx(saved[0], saved[1]):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def active_mesh_shape() -> Dict[str, int]:
@@ -175,26 +201,143 @@ def named_sharding(logical_axes: Sequence[Optional[str]],
     return placements(pspec(logical_axes, shape=shape, mesh=mesh), mesh)
 
 
-def constrain(x, *logical_axes: Optional[str]):
-    """The identity outside a context and over a mesh whose non-data axes
-    are all 1; raises ``NotImplementedError`` where the JAX package would
-    shard an activation over a larger 'model' or 'pod' axis (see the
-    module docstring)."""
+class ModelAxis(NamedTuple):
+    group: Any          # the model subgroup (a torch.distributed group)
+    rank: int           # this rank's index along 'model'
+    size: int
+
+
+def _coordinate(mesh: Any, axis: str) -> int:
+    """This rank's index along ``axis`` of a ``DeviceMesh``."""
+    if not hasattr(mesh, "get_local_rank"):
+        raise ValueError(f"a {mesh_shape(mesh).get(axis)}-way {axis!r} axis "
+                         "needs a DeviceMesh over an initialised process "
+                         "group (a shape alone names no rank)")
+    return int(mesh.get_local_rank(axis))
+
+
+def mesh_model_axis(mesh: Any) -> Optional[ModelAxis]:
+    """The 'model' axis of ``mesh`` as this rank sees it; None where it
+    is 1."""
+    size = mesh_shape(mesh).get(MODEL, 1)
+    if size == 1:
+        return None
+    return ModelAxis(mesh[MODEL].get_group(), _coordinate(mesh, MODEL), size)
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The active context's 'model' axis, or None outside a context and
+    where the axis is 1."""
+    return mesh_model_axis(_CTX.mesh) if active() else None
+
+
+class Shardings(dict):
+    """Parameter key -> DTensor placements (``Model.shardings``), with the
+    mesh they lay the parameters out on."""
+
+    def __init__(self, mesh: Any, placements: Dict[str, Tuple]):
+        super().__init__(placements)
+        self.mesh = mesh
+
+    def model_dim(self, key: str) -> Optional[int]:
+        """The dim of ``key`` split over 'model' (None where whole)."""
+        from torch.distributed.tensor import Shard
+
+        names = list(mesh_shape(self.mesh))
+        if MODEL not in names or mesh_shape(self.mesh)[MODEL] == 1:
+            return None
+        pl = self[key][names.index(MODEL)]
+        return pl.dim if isinstance(pl, Shard) else None
+
+
+def model_size(mesh: Any = None) -> int:
+    mesh = mesh if mesh is not None else (_CTX.mesh if active() else None)
+    return 1 if mesh is None else mesh_shape(mesh).get(MODEL, 1)
+
+
+def _model_dim(spec: Tuple) -> Optional[int]:
+    for i, entry in enumerate(spec):
+        if MODEL in ((entry,) if isinstance(entry, str) else entry or ()):
+            return i
+    return None
+
+
+def local_slice(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
+                mesh: Any) -> Optional[Tuple[int, int, int]]:
+    """(dim, start, length) of this rank's shard over 'model' of a tensor
+    of logical axes ``logical_axes`` and full ``shape``; None where it is
+    replicated over 'model'."""
+    m = model_size(mesh)
+    if m == 1:
+        return None
+    dim = _model_dim(pspec(logical_axes, shape=shape, mesh=mesh))
+    if dim is None:
+        return None
+    k = shape[dim] // m
+    return dim, _coordinate(mesh, MODEL) * k, k
+
+
+def local_shard(tensor, placements: Sequence, mesh: Any):
+    """This rank's piece of the full ``tensor`` under DTensor
+    ``placements`` (one per mesh dim, as ``named_sharding`` gives them),
+    over the 'model' axis only: the port applies no FSDP over 'data'."""
+    from torch.distributed.tensor import Shard
+
+    names = list(mesh_shape(mesh))
+    if len(placements) != len(names):
+        raise ValueError(f"local_shard: {len(placements)} placements for a "
+                         f"mesh of {names}")
+    for name, pl in zip(names, placements):
+        if name != MODEL or not isinstance(pl, Shard):
+            continue
+        m = mesh_shape(mesh)[name]
+        n = tensor.shape[pl.dim]
+        if n % m:
+            raise ValueError(f"local_shard: dim {pl.dim} of "
+                             f"{tuple(tensor.shape)} does not split {m} ways")
+        k = n // m
+        tensor = tensor.narrow(pl.dim, _coordinate(mesh, name) * k, k)
+    return tensor
+
+
+def constrain(x, *logical_axes: Optional[str], shard: Optional[int] = None,
+              partial: bool = False):
+    """Give ``x`` the layout over 'model' that the JAX spec of
+    ``logical_axes`` names (``act_seq`` read as replicated, 'data' and
+    'pod' as local), by the collective that gets it there: an all-reduce
+    from a partial sum (then this rank's slice where the target is
+    sharded: a reduce-scatter), an all-gather from a shard on another dim,
+    this rank's slice from a replicated tensor.  ``shard=d`` says ``x`` is
+    this rank's shard of dim ``d``, ``partial`` that it is a partial sum;
+    by default it is replicated.  The identity outside a context and over a
+    model axis of 1.  Every collective has its conjugate backward
+    (``parallel/collectives.py``)."""
     if not active():
         return x
     if len(logical_axes) != x.dim():
         raise ValueError(f"constrain: {len(logical_axes)} logical axes for "
                          f"a tensor of shape {tuple(x.shape)}")
-    sizes = mesh_shape(_CTX.mesh)
-    if all(n == 1 for a, n in sizes.items() if a not in _LOCAL_AXES):
+    if shard is not None and partial:
+        raise ValueError("constrain: a tensor is sharded or partial, not both")
+    m = model_size()
+    if m == 1:
         return x
-    spec = pspec(logical_axes, shape=tuple(x.shape))
-    named = {a for e in spec for a in ((e,) if isinstance(e, str)
-                                       else e or ())}
-    if all(sizes[a] == 1 or a in _LOCAL_AXES for a in named):
+    from . import collectives as coll
+
+    full = list(x.shape)
+    if shard is not None:
+        shard %= x.dim()
+        full[shard] *= m
+    logical = tuple(None if a in PORT_REPLICATED else a
+                    for a in logical_axes)
+    # over the model axis alone: 'data' and 'pod' shard no activation here
+    want = _model_dim(pspec(logical, shape=full, mesh={MODEL: m}))
+    if partial:         # a reduce-scatter where the target is sharded
+        x = coll.reduce_from_model(x)
+        return x if want is None else coll.scatter_to_model(x, want)
+    if shard is None:
+        return x if want is None else coll.scatter_to_model(x, want)
+    if want == shard:
         return x
-    raise NotImplementedError(
-        f"constrain{tuple(logical_axes)} over mesh {sizes}: sharding an "
-        "activation over a 'model' axis above 1 needs the port's tensor "
-        "parallelism (ROADMAP queue 1 item 4 (ii)); eager PyTorch has no "
-        "GSPMD to derive the collectives from")
+    x = coll.gather_from_model(x, shard)
+    return x if want is None else coll.scatter_to_model(x, want)

@@ -17,6 +17,12 @@ so the slices give the same numbers, and the float32 temporaries never
 exceed a few slices (qwen3-8b's ``lm_head`` alone is 2.49 GB in float32).
 ``torch.optim.AdamW`` is not used: its operation order and its bf16
 handling are not the JAX package's.
+
+Under tensor parallelism (a ``Model`` over a 'model' axis) each rank holds
+shards of some parameters and whole copies of the rest; the update stays
+elementwise on what the rank holds, and the clip's global norm sums the
+split parameters' squares over the model group and counts each whole one
+once (``Model.norm_layout``).
 """
 from __future__ import annotations
 
@@ -103,16 +109,35 @@ def _slices(*ts: torch.Tensor) -> Iterable[Tuple[torch.Tensor, ...]]:
         yield tuple(f[i:i + UPDATE_CHUNK] for f in flats)
 
 
-@torch.no_grad()
-def global_norm(tree: Union[Tensors, Iterable[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in float32."""
-    leaves = tree.values() if isinstance(tree, Mapping) else tree
+def _sum_sq(leaves) -> Optional[torch.Tensor]:
     parts = [sum(torch.sum(torch.square(c.float()))
                  for (c,) in _slices(x.contiguous()))
              for x in leaves if x.numel()]
-    if not parts:
-        return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(torch.sum(torch.stack(parts)))
+    return torch.sum(torch.stack(parts)) if parts else None
+
+
+@torch.no_grad()
+def global_norm(tree: Union[Tensors, Iterable[torch.Tensor]],
+                layout: Optional[Tuple] = None) -> torch.Tensor:
+    """sqrt of the sum of every element's square, in float32.  ``layout``
+    = (model group, keys split over it) (``Model.norm_layout``): the split
+    leaves' squares are summed over the group, the others counted once."""
+    if layout is None:
+        leaves = tree.values() if isinstance(tree, Mapping) else tree
+        sq = _sum_sq(leaves)
+        if sq is None:
+            return torch.zeros((), dtype=torch.float32)
+        return torch.sqrt(sq)
+    import torch.distributed as dist
+
+    group, split = layout
+    whole = _sum_sq(v for k, v in tree.items() if k not in split)
+    parts = _sum_sq(v for k, v in tree.items() if k in split)
+    dev = next(iter(tree.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    parts = (zero if parts is None else parts).reshape(1).clone()
+    dist.all_reduce(parts, group=group)
+    return torch.sqrt(parts[0] + (zero if whole is None else whole))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -215,7 +240,8 @@ def apply_updates(params: Union[torch.nn.Module, Tensors], grads: Tensors,
         raise KeyError(f"apply_updates: gradients for "
                        f"{sorted(set(grads) ^ set(ps))[:8]} do not match the "
                        "parameters")
-    gnorm = global_norm(grads)
+    layout = getattr(params, "norm_layout", lambda: None)()
+    gnorm = global_norm(grads, layout)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     lr = schedule(cfg, state.step)
     step = state.step + 1

@@ -141,8 +141,25 @@ def test_restore_refuses_a_mismatch(tmp_path):
         mgr.restore({"u": torch.zeros(3)})
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore({})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="names no mesh"):
         mgr.restore({"w": torch.zeros(3)}, shardings={"w": None})
+    # shardings re-shard: rank 1 of a (1, 2) mesh keeps the second half of
+    # the split dim, and of AdamW's moment of the same parameter
+    from torch.distributed.tensor import Replicate, Shard
+
+    from _torch_tp_worker import MeshView
+    from repro_torch.parallel.sharding import Shardings
+    full = torch.arange(12.0).reshape(3, 4)
+    mgr.save(2, {"w": full, "opt.m.w": full * 2, "b": torch.ones(3)})
+    mesh = MeshView(1, (1, 2))
+    got = {"w": torch.zeros(3, 2), "opt.m.w": torch.zeros(3, 2),
+           "b": torch.zeros(3)}
+    mgr.restore(got, step=2, shardings=Shardings(
+        mesh, {"w": (Replicate(), Shard(1)), "b": (Replicate(),
+                                                     Replicate())}))
+    assert torch.equal(got["w"], full[:, 2:])
+    assert torch.equal(got["opt.m.w"], full[:, 2:] * 2)
+    assert torch.equal(got["b"], torch.ones(3))
 
 
 def test_bf16_round_trip_is_bit_exact(tmp_path):

@@ -28,6 +28,7 @@ import torch
 import torch.multiprocessing as tmp
 
 import _torch_train_worker as worker
+from _torch_tp_worker import MeshView
 from repro.compat import abstract_mesh
 from repro.configs import ARCHS
 from repro.models import get_model as jax_get_model
@@ -166,12 +167,27 @@ def test_constrain_inside_a_context():
     # replicated data parallelism: each rank holds its batch slice already
     with tshd.sharding_ctx(((2, 1), ("data", "model"))):
         assert tshd.constrain(x, *axes) is x
-    with tshd.sharding_ctx(((1, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match=r"item 4 \(ii\)"):
-            tshd.constrain(x, *axes)
-        # a dim that does not divide the model axis stays unsharded: fine
-        y = torch.ones(8, 15)
-        assert tshd.constrain(y, "act_batch", "act_seq") is y
+    # over a model axis of 2 a replicated tensor becomes this rank's slice
+    # of the dim the JAX spec splits (the port keeps act_seq replicated)
+    x = torch.arange(8 * 16 * 32, dtype=torch.float32).reshape(8, 16, 32)
+    jmesh = abstract_mesh((1, 2), ("data", "model"))
+    for rank in (0, 1):
+        with tshd.sharding_ctx(MeshView(rank, (1, 2))):
+            for logical in [("act_batch", None, "act_ffn"),
+                            ("act_batch", "act_heads", None),
+                            ("act_batch", "act_kv_seq", None),
+                            ("act_experts", None, None)]:
+                spec = tuple(jshd.pspec(logical, shape=x.shape, mesh=jmesh))
+                dim = spec.index("model")
+                want = x.narrow(dim, rank * x.shape[dim] // 2,
+                                x.shape[dim] // 2)
+                assert torch.equal(tshd.constrain(x, *logical), want)
+                # already this rank's shard: stays as it is
+                assert tshd.constrain(want, *logical, shard=dim) is want
+            assert tshd.constrain(x, *axes) is x
+            # a dim that does not divide the model axis stays unsharded
+            y = torch.ones(8, 15)
+            assert tshd.constrain(y, "act_batch", "act_ffn") is y
     assert not tshd.active()
 
 

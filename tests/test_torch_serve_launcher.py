@@ -2,8 +2,11 @@
 the CPU: the JAX launcher's flags and three output lines; greedy tokens
 equal to the JAX package's ``prefill`` / ``decode_step`` on its own
 weights (its launcher, ``repro.launch.serve``, does not run under this
-JAX); no card without one, and no mesh above 1 x 1 yet."""
+JAX); no card without one; and a mesh of two gloo ranks (``--model-mesh
+2``, tensor and expert parallelism; ``--data-mesh 2``, a row each) on a
+free localhost port, whose greedy tokens equal the 1 x 1 run's."""
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -106,6 +109,23 @@ def test_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("flag", ["--model-mesh", "--data-mesh"])
 def test_mesh_above_one_waits_for_parallel(flag):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        serve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
-                    flag, "2"])
+    """Two gloo ranks in torchrun's environment: rank 0 prints the first
+    row's greedy tokens, equal to the 1 x 1 run's (arctic-480b: experts,
+    heads and the dense residual split over 'model')."""
+    argv = ["--arch", "arctic-480b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--gen", "6"]
+    want = serve.main(argv).out.tokens[0].tolist()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    ranks = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv, flag, "2"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), RANK=str(r),
+                 WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(2)]
+    outs = [p.communicate(timeout=200)[0] for p in ranks]
+    assert [p.returncode for p in ranks] == [0, 0], outs
+    sample = [ln for ln in outs[0].splitlines() if ln.startswith("sample: ")]
+    assert eval(sample[0][len("sample: "):]) == want
+    assert "sample:" not in outs[1]

@@ -4,9 +4,10 @@ test (``tests/test_system.py:112-147``) on the port; a resume on another
 ``--data-mesh`` (two gloo ranks through ``torchrun``'s environment on a
 free localhost port), whose first resumed step logs the loss that an
 uninterrupted one-rank run logs at that step (rtol 2e-5, the microbatch
-test's loss tolerance: the same mean in another summation order); and the
-refusals (no card without ``--device``, ``--model-mesh`` above 1,
-``--data-mesh 2`` in one process).
+test's loss tolerance: the same mean in another summation order);
+``--model-mesh 2`` on two gloo ranks against one rank (the same losses,
+rtol 2e-5, for the same reason); and the refusals (no card without
+``--device``, a mesh above 1 x 1 in one process).
 """
 import os
 import re
@@ -139,7 +140,35 @@ def test_launcher_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main([*BASE, "--steps", "1"])
-    with pytest.raises(NotImplementedError, match=r"item 4 \(ii\)"):
+    with pytest.raises(SystemExit, match="--model-mesh 2 needs 2 ranks"):
         train.main(["--device", "cpu", *BASE, "--model-mesh", "2"])
     with pytest.raises(SystemExit, match="--data-mesh 2 needs 2 ranks"):
         train.main(["--device", "cpu", *BASE, "--data-mesh", "2"])
+
+
+def test_model_mesh_two_trains_as_one_rank(tmp_path):
+    """Four steps on one rank and on a 1 x 2 mesh of two gloo ranks
+    (tensor parallelism): every logged loss agrees, and the checkpoint the
+    two ranks write holds the full arrays, equal in shape to one rank's."""
+    common = ["--device", "cpu", *BASE, "--steps", "4", "--log-every", "1",
+              "--lr", "1e-3"]
+    one = _run(*common, "--ckpt-dir", str(tmp_path / "one"))
+    assert one.returncode == 0, one.stderr[-2000:]
+    port = str(_free_port())
+    ranks = [subprocess.Popen(
+        _cmd(*common, "--model-mesh", "2", "--ckpt-dir",
+             str(tmp_path / "two")),
+        env=_env(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 MASTER_ADDR="localhost", MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+        for r in range(2)]
+    outs = [p.communicate(timeout=200)[0] for p in ranks]
+    assert [p.returncode for p in ranks] == [0, 0], outs
+    want, got = _losses(one.stdout), _losses(outs[0])
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    np.testing.assert_allclose([got[s] for s in range(4)],
+                               [want[s] for s in range(4)], rtol=2e-5)
+    a = np.load(tmp_path / "one" / "step_00000004" / "arrays_p0.npz")
+    b = np.load(tmp_path / "two" / "step_00000004" / "arrays_p0.npz")
+    assert sorted(a) == sorted(b)
+    assert all(a[k].shape == b[k].shape for k in a)
