@@ -220,10 +220,15 @@ phase, and fail on the first phase that fails.
     greedy tokens, the logits' relative L2 within ``_bf16_tol(layers)``;
     prefill ms, decode ms a step, kernels a step (``torch.profiler``), the
     collectives' share of the wall (``collectives.STATS``) and peak memory a
-    rank; (e) qwen3-8b at full width, 8 layers, 2 train steps at 1 x 2,048,
-    losses and clip norms within ``_tp_limit_train``.  The sizes of the
-    archs one card holds only in part are printed first, and the time of
-    one gloo all-reduce and all-gather on the card by size.
+    rank.  Where (d)'s relative L2 comes from: each of its two runs' logits
+    against a bf16 forward of the same mesh over the same sequence, and, at
+    ``TP_F32_CUT`` layers, the bf16 forward on 1 x 1 and on 1 x 2 each
+    against a float32 1 x 1 forward of the same bf16 weights, within
+    ``_bf16_tol(layers)``.  (e) qwen3-8b at full width, 8 layers, 2 train
+    steps at 1 x 2,048, losses and clip norms within ``_tp_limit_train``.
+    The sizes of the archs one card holds only in part are printed first,
+    and the time of one gloo all-reduce and all-gather on the card by
+    size.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
@@ -2896,6 +2901,8 @@ TP_PROMPT, TP_MAX_LEN, TP_STEPS = 512, 528, 16
 TP_FULL = (("(b)", "arctic-480b", 1), ("(c)", "llama4-maverick-400b-a17b", 1),
            ("(d)", "qwen3-32b", 64))
 TP_TRAIN = ("qwen3-8b", 8, 1, 2048, 2)
+# (d) cut to this many layers for the float32 forward (37.5 GB)
+TP_F32_CUT = ("qwen3-32b", 16)
 TP_JOIN_S = 900
 
 
@@ -3007,12 +3014,14 @@ def _tp_compare_reduced(dev, mesh, rank, data):
     return out
 
 
-def _tp_serve(dev, cfg, mesh, prompts, tokens):
+def _tp_serve(dev, cfg, mesh, prompts, tokens, forward=False):
     """Prefill ``prompts`` into a TP_MAX_LEN cache and decode TP_STEPS
     steps: greedy on the 1 x 1 run (``tokens`` None), the 1 x 1 run's
     tokens on a mesh.  Steps 0-7 timed plain, 8-13 with the collectives
     timed (``STATS``, a device synchronise around each), 14-15 under
-    ``torch.profiler`` for the kernels a step."""
+    ``torch.profiler`` for the kernels a step.  ``forward``: also the
+    logits of one ``forward`` over the prompt and the fed tokens, at the
+    positions the served logits predict from."""
     import torch
 
     from repro_torch.models import Model
@@ -3067,14 +3076,71 @@ def _tp_serve(dev, cfg, mesh, prompts, tokens):
         rows.append(lg[:, -1].float().cpu())
     peak = torch.cuda.max_memory_allocated()
     held = sum(p.numel() * p.element_size() for p in model.parameters())
-    del model, cache
+    del cache
+    fwd = None
+    if forward:
+        seq = torch.cat([prompts, torch.tensor([toks[:TP_STEPS - 1]],
+                                               device=dev)], dim=1)
+        fwd = model.forward(seq)[0, TP_PROMPT - 1:].float().cpu()
+    del model
     torch.cuda.empty_cache()
-    return {"logits": torch.cat(rows[:-1]), "tokens": toks,
+    return {"logits": torch.cat(rows[:-1]), "tokens": toks, "forward": fwd,
             "init_s": init_s, "prefill_ms": prefill_ms,
             "decode_ms_per_step": 1e3 * sum(plain) / len(plain),
             "kernels_per_step": kernels / (TP_STEPS - 14),
             "collective_share": coll_s / coll_wall if coll_wall else 0.0,
             "peak_gib": peak / 2**30, "weights_gib": held / 2**30}
+
+
+def _tp_against_f32(dev, mesh, rank):
+    """(d) at ``TP_F32_CUT`` layers: the bf16 forward over one 1 x
+    TP_MAX_LEN sequence on 1 x 1 (rank 0) and on 1 x 2, and a float32 1 x 1
+    forward of the same weights rounded to bf16 (rank 0); on rank 0 the
+    largest per-row relative L2 of each bf16 run against float32 and of one
+    against the other.  Each bf16 run within ``_bf16_tol(layers)`` of
+    float32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    arch, layers = TP_F32_CUT
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    seq = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, TP_MAX_LEN)), device=dev)
+
+    def forward(c, m):
+        model = Model(c, device=dev, mesh=m).init(
+            torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+        out = model.forward(seq)[0].float().cpu()
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    if rank == 0:
+        one = forward(cfg, None)
+        want = forward(dataclasses.replace(cfg, dtype="float32"), None)
+    dist.barrier()
+    two = forward(cfg, mesh)
+    if rank != 0:
+        return None
+    v = cfg.vocab_size
+    rec = {"arch": arch, "layers": layers, "tol": _bf16_tol(layers),
+           "1x1 vs f32": _rel_rows(one, want, v)[0],
+           "1x2 vs f32": _rel_rows(two, want, v)[0],
+           "1x2 vs 1x1": _rel_rows(two, one, v)[0]}
+    for k in ("1x1 vs f32", "1x2 vs f32"):
+        if not rec[k] <= rec["tol"]:
+            raise AssertionError(f"{arch} at {layers} layers: bf16 {k} "
+                                 f"{rec[k]:.4f} > {rec['tol']:.4f}")
+    return rec
 
 
 def _tp_train(dev, cfg, mesh, batch, steps):
@@ -3166,13 +3232,15 @@ def _tp_rank(rank, world, store, out_dir):
                 cfg = dataclasses.replace(get_config(arch), n_layers=layers)
                 prompts = torch.as_tensor(np.random.default_rng(0).integers(
                     0, cfg.vocab_size, (1, TP_PROMPT)), device=dev)
-                one = _tp_serve(dev, cfg, None, prompts, None) \
+                drift = label == "(d)"
+                one = _tp_serve(dev, cfg, None, prompts, None, drift) \
                     if rank == 0 else None
                 toks = [one["tokens"] if rank == 0 else None]
                 dist.broadcast_object_list(toks, src=0)
-                two = _tp_serve(dev, cfg, mesh, prompts, toks[0])
+                two = _tp_serve(dev, cfg, mesh, prompts, toks[0], drift)
+                skip = ("logits", "tokens", "forward")
                 rec = {"two": {k: v for k, v in two.items()
-                               if k not in ("logits", "tokens")}}
+                               if k not in skip}}
                 if rank == 0:
                     rel, mx = _rel_rows(two["logits"], one["logits"],
                                         cfg.vocab_size)
@@ -3182,10 +3250,20 @@ def _tp_rank(rank, world, store, out_dir):
                             f"{label} {arch}: 1 x 2 logits differ from 1 x 1 "
                             f"by {rel:.4f} relative L2 > {tol:.4f}")
                     rec.update(one={k: v for k, v in one.items()
-                                    if k not in ("logits", "tokens")},
+                                    if k not in skip},
                                rel_l2=rel, max_abs_err=mx, tol=tol)
+                    if drift:
+                        v = cfg.vocab_size
+                        rec["bf16_paths"] = {
+                            "1x1 decode vs 1x1 forward": _rel_rows(
+                                one["logits"], one["forward"], v)[0],
+                            "1x2 decode vs 1x2 forward": _rel_rows(
+                                two["logits"], two["forward"], v)[0],
+                            "1x2 forward vs 1x1 forward": _rel_rows(
+                                two["forward"], one["forward"], v)[0]}
                 out[label] = rec
                 dist.barrier()
+            out["against_f32"] = _tp_against_f32(dev, mesh, rank)
             arch, layers, b, s, steps = TP_TRAIN
             cfg = dataclasses.replace(get_config(arch), n_layers=layers)
             rng = np.random.default_rng(0)
@@ -3315,6 +3393,18 @@ def _tensor_parallel(smi):
         rec[label] = {"arch": arch, "layers": layers, "rel_l2": r0["rel_l2"],
                       "tol": r0["tol"], "one": one, "two": two,
                       "two_rank1": r1["two"]}
+        if "bf16_paths" in r0:
+            rec[label]["bf16_paths"] = r0["bf16_paths"]
+            print("     two bf16 paths over the same tokens, relative L2: "
+                  + ", ".join(f"{k} {x:.4e}" for k, x in
+                              r0["bf16_paths"].items()) + f" [{smi}]",
+                  flush=True)
+    f32 = rec["against_f32"] = ranks[0]["against_f32"]
+    print(f"   (d) {f32['arch']} cut to {f32['layers']} layers, bf16 forward "
+          f"over 1 x {TP_MAX_LEN} against a float32 1 x 1 forward of the same "
+          f"weights, relative L2: 1 x 1 {f32['1x1 vs f32']:.4e}, 1 x 2 "
+          f"{f32['1x2 vs f32']:.4e} (limit {f32['tol']:.4f}); 1 x 2 against "
+          f"1 x 1 {f32['1x2 vs 1x1']:.4e} [{smi}]", flush=True)
     e0, e1 = ranks[0]["(e)"], ranks[1]["(e)"]
     arch, layers, b, s, steps = TP_TRAIN
     print(f"   (e) {arch} at full width, {layers} layers, bf16, {steps} train "

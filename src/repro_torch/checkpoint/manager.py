@@ -28,9 +28,10 @@ Over a 'model' axis (tensor parallelism) the checkpoint still holds the
 full arrays, as a 1 x 1 run writes them: ``save`` all-gathers each split
 leaf over the model group (one leaf at a time, straight to the host) and
 ``restore`` keeps this rank's shard of each, so a checkpoint saved on any
-model axis restores on any other.  ``shardings`` (``Model.shardings()``)
-say which leaves are split; a ``Model`` in the tree gives its own by
-default, and a leaf takes the sharding of the parameter its key ends
+model axis restores on any other.  ``save`` reads which leaves are split
+from the ``Model`` in the tree; ``restore`` from its ``shardings``
+(``Model.shardings()``, by default those of a ``Model`` in
+``tree_like``).  A leaf takes the sharding of the parameter its key ends
 with (``opt.m.<key>`` that of ``<key>``).
 
 ``PreemptionGuard`` converts SIGTERM (the cloud preemption signal) into a
@@ -150,11 +151,10 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             blocking: bool = False, shardings: Any = None) -> None:
+             blocking: bool = False) -> None:
         rank, world = process_index_and_count()
         flat = _flatten(tree)
-        if shardings is None:
-            shardings = _default_shardings(tree)
+        shardings = _default_shardings(tree)
         ax = None if shardings is None else shd.mesh_model_axis(
             shardings.mesh)
         # Pull to host NOW (one copy); disk IO happens in the background.

@@ -16,8 +16,9 @@ prefill time, the decode steps with tokens/s, and the first row's tokens.
 in the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``): each model group holds the model split over its M ranks
 (``Model(mesh=)``) and each data rank serves its own rows of the batch.
-The backend is gloo on ``cpu`` and NCCL on ``cuda`` (``--dist-backend
-gloo`` lets ranks share one card).  Rank 0 prints.
+The backend is NCCL where each of this host's ranks has a card of its
+own, else gloo (on ``cpu``, or where ranks share a card, which NCCL
+refuses).  Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -95,20 +96,20 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
                     choices=("bfloat16", "float16", "float32"),
                     help="parameter and activation dtype (default: the "
                          "config's)")
-    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
-                    help="process-group backend of a mesh above 1 x 1 "
-                         "(default: gloo on cpu, nccl on cuda)")
     args = ap.parse_args(argv)
 
     from .._device import resolve_device
     dev = resolve_device(args.device)
-    if args.data_mesh * args.model_mesh == 1:
+    n = args.data_mesh * args.model_mesh
+    if n == 1:
         return _serve(args, dev, None)
 
     import torch.distributed as dist
 
     from .mesh import join_group, make_host_mesh
-    backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    backend = ("nccl" if dev.type == "cuda"
+               and ranks_here <= torch.cuda.device_count() else "gloo")
     if args.batch % args.data_mesh:
         raise SystemExit(f"--batch {args.batch} does not split over "
                          f"--data-mesh {args.data_mesh}")

@@ -16,8 +16,9 @@ Over a 'model' axis the experts are split (expert parallelism, the JAX
 package's ``moe.py:40-68``): routing runs whole on every rank, each rank
 dispatches to and runs only its own experts, and the combine, contracting
 over the split expert dim, ends in one all-reduce.  Where the axis does
-not divide the experts, the spec splits their ffn dim instead and the
-expert outputs are all-reduced before the combine.
+not divide the experts, the JAX spec splits each expert's ffn dim
+instead; no config of the zoo meets that layout, and ``check_mesh``
+refuses it.
 
 Routing takes ``torch.topk`` where the JAX package takes
 ``jax.lax.top_k``.  On equal router logits the two may order experts
@@ -46,6 +47,18 @@ def moe_specs(cfg) -> Dict[str, ParamSpec]:
         "w_up": ParamSpec((e, d, f), ("experts", "embed", "ffn")),
         "w_down": ParamSpec((e, f, d), ("experts", "ffn", "embed")),
     }
+
+
+def check_mesh(cfg, mesh) -> None:
+    """Raise where ``mesh``'s 'model' axis would split each expert's ffn
+    dim, not whole experts: the axis does not divide ``cfg.n_experts``."""
+    w = moe_specs(cfg)["w_gate"]
+    sl = shd.local_slice(w.logical, w.shape, mesh)
+    if sl is not None and sl[0] != 0:
+        raise ValueError(
+            f"{cfg.name}: a model axis of {shd.model_size(mesh)} does not "
+            f"divide its {cfg.n_experts} experts; expert parallelism splits "
+            "whole experts")
 
 
 def _capacity(tokens_per_group: int, cfg) -> int:
@@ -80,18 +93,16 @@ def _route(p, xg: torch.Tensor, cfg):
 def _expert_ffn(p, inp: torch.Tensor) -> torch.Tensor:
     """inp (G,E,C,D) -> (G,E,C,D); with the experts split, this rank's
     E / M experts in and out."""
-    ed = p.shard_dim("w_gate")          # 0: experts split; 2: their ffn
+    ed = 1 if p.shard_dim("w_gate") == 0 else None
     inp = shd.constrain(inp, "act_groups", "act_experts", None, None,
-                        shard=1 if ed == 0 else None)
-    if ed == 2:
-        inp = coll.copy_to_model(inp)
+                        shard=ed)
     h = F.silu(torch.einsum("gecd,edf->gecf", inp, p.w_gate))
     h = h * torch.einsum("gecd,edf->gecf", inp, p.w_up)
     h = shd.constrain(h, "act_groups", "act_experts", None, "act_ffn",
-                      shard={0: 1, 2: 3}.get(ed))
+                      shard=ed)
     out = torch.einsum("gecf,efd->gecd", h, p.w_down)
     return shd.constrain(out, "act_groups", "act_experts", None, None,
-                         shard=1 if ed == 0 else None, partial=ed == 2)
+                         shard=ed)
 
 
 def moe_forward(p, x: torch.Tensor, cfg) -> torch.Tensor:

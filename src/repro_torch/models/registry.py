@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Set, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device
-from . import transformer
+from . import moe, transformer
 from .common import (ParamModule, init_params, named_slices, named_specs,
                      param_count)
 from .config import ModelConfig
@@ -44,6 +44,8 @@ class Model(ParamModule):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
                  mesh: Any = None):
         dev, dtype = resolve_device(device), _dtype(cfg.dtype)
+        if mesh is not None and cfg.is_moe:
+            moe.check_mesh(cfg, mesh)
         specs = transformer.model_specs(cfg)
         super().__init__(specs, dtype, dev, mesh)
         self.cfg, self.device, self.dtype = cfg, dev, dtype

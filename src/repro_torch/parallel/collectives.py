@@ -16,9 +16,9 @@ gradient on every rank; a sharded one carries its shard's.  So:
     overlap), the zero-padded gradients all-reduced backward.
 
 Everything is built on ``all_reduce`` and the list form of ``all_gather``,
-the two that gloo carries for tensors on the card.  Over gloo a bfloat16
-or float16 tensor is reduced in float32 and rounded back once (a gather
-moves it as it is).  The group is the model subgroup of the active
+the two that gloo carries for tensors on the card.  A bfloat16 or
+float16 tensor is reduced in float32 and rounded back once, over gloo
+and NCCL alike (a gather moves it as it is).  The group is the model subgroup of the active
 ``sharding_ctx``'s mesh (``mesh["model"]``); outside a context, or over a
 model axis of 1, every function is the identity.
 
@@ -52,11 +52,9 @@ class _Stats:
 STATS = _Stats()
 
 
-
-def _wire(t: torch.Tensor, group) -> torch.Tensor:
-    """The tensor gloo reduces: float32 for a half-width float."""
-    if (t.dtype in (torch.bfloat16, torch.float16)
-            and dist.get_backend(group) == "gloo"):
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The tensor reduced: float32 for a half-width float."""
+    if t.dtype in (torch.bfloat16, torch.float16):
         return t.float()
     return t.contiguous()
 
@@ -87,7 +85,7 @@ def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM,
     ax = ax or shd.model_axis()
     if ax is None:
         return t
-    buf = _wire(t, ax.group)
+    buf = _wire(t)
     if buf is t:
         buf = t.clone()
 

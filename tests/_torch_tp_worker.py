@@ -22,9 +22,11 @@ Two kinds of process, started at once by a module fixture:
   held at float32 rounding), and on a 1 x 2 mesh a checkpoint of the
   converted parameters and AdamW state.
 
-Model rank 0 of each data rank pickles ``rank<r>.pkl``; a traceback goes
-to ``rank<r>.err``.  The tests (the ``test_*`` functions below, imported
-by each file) read both.  Tolerances: 1e-4 (rtol and atol) on logits and
+Every rank pickles ``rank<r>.pkl``; a traceback goes to ``rank<r>.err``.
+The tests (the ``check_*`` functions below, imported by each file) read
+both: model rank 0 of each data rank against the reference, and every
+other model rank's loss, clip norm, gradients and update against model
+rank 0's, bit for bit.  Tolerances: 1e-4 (rtol and atol) on logits and
 caches, as in ``tests/test_torch_models.py``; gradients within 1e-4 of each
 parameter's largest entry, as in ``tests/test_torch_train.py``; the update
 at rtol 2e-6 / atol 1e-9 and its norm at rtol 1e-6, as in
@@ -286,47 +288,6 @@ def _port_arch(arch, params, mesh, dev, d, dr, out, deadline, save_ckpt):
     return res
 
 
-def _moe_ffn_split(mesh, dev):
-    """arctic-480b at ``reduced()`` with 6 experts, which a model axis of 4
-    does not divide: the spec splits each expert's ffn dim instead.  The
-    sharded port against the unsharded one (itself held against the JAX
-    package): the largest errors of the logits, the loss and the gradients
-    (each over its parameter's largest entry)."""
-    import dataclasses
-
-    import torch
-
-    from repro_torch import configs
-    from repro_torch.models import Model
-    from repro_torch.models.common import named_slices
-
-    cfg = dataclasses.replace(configs.get_config("arctic-480b").reduced(),
-                              n_experts=6)
-    one = Model(cfg, device=dev).init(torch.Generator().manual_seed(0))
-    tp = Model(cfg, device=dev, mesh=mesh).init(
-        torch.Generator().manual_seed(0))
-    assert tp.decoder[0].moe.shard_dim("w_gate") == 2
-    toks, _ = inputs(cfg)
-    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:]}
-    out = {"forward": float((tp.forward(batch["tokens"]) -
-                             one.forward(batch["tokens"])).abs().max())}
-    lt, lo = tp.loss(batch), one.loss(batch)
-    lt.backward()
-    lo.backward()
-    out["loss"] = abs(float(lt.detach()) - float(lo.detach()))
-    ref = dict(one.named_parameters())
-    got = dict(tp.named_parameters())
-    worst = 0.0
-    for k, sl in named_slices(tp):
-        want = ref[k].grad if sl is None else ref[k].grad.narrow(*sl)
-        scale = float(want.abs().max())
-        if scale:
-            worst = max(worst, float((got[k].grad - want).abs().max()) /
-                        scale)
-    out["grads"] = worst
-    return out
-
-
 def run(rank: int, world: int, store: str, shape, out: str,
         device: str = "cpu", archs=None) -> None:
     import torch
@@ -351,14 +312,11 @@ def run(rank: int, world: int, store: str, shape, out: str,
                                     deadline)
                 result[arch] = _port_arch(arch, params, mesh, dev, d, dr, out,
                                           deadline, save_ckpt=shape == (1, 2))
-            if shape == (1, 4):
-                result["ffn_split"] = _moe_ffn_split(mesh, dev)
             result["data_rank"] = dr
-            writes = mesh.get_local_rank("model") == 0
+            result["model_rank"] = mesh.get_local_rank("model")
         finally:
             dist.destroy_process_group()
-        if writes:
-            _dump(os.path.join(out, f"rank{rank}.pkl"), result)
+        _dump(os.path.join(out, f"rank{rank}.pkl"), result)
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
@@ -409,14 +367,15 @@ def launch(shape, out, device="cpu", archs=None, reference_too=True):
         with open(os.path.join(out, f"reference{i}.log")) as f:
             assert r.returncode == 0, f.read()[-3000:]
     assert [p.exitcode for p in procs] == [0] * world, errs
-    ranks = {}
+    by_rank = {}
     for r in range(world):
-        path = os.path.join(out, f"rank{r}.pkl")
-        if os.path.exists(path):
-            with open(path, "rb") as f:
-                res = pickle.load(f)
-            ranks[res["data_rank"]] = res
-    assert sorted(ranks) == list(range(d))
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            res = pickle.load(f)
+        by_rank[res["data_rank"], res["model_rank"]] = res
+    assert sorted(by_rank) == [(dr, mr) for dr in range(d) for mr in range(m)]
+    ranks = {dr: by_rank[dr, 0] for dr in range(d)}
+    for dr in range(d):
+        ranks[dr]["peers"] = [by_rank[dr, mr] for mr in range(1, m)]
     refs = {}
     for a in archs or ARCHS:
         with open(os.path.join(out, f"ref_{a}.pkl"), "rb") as f:
@@ -486,6 +445,25 @@ def check_loss_and_gradients(ranks, refs, out, arch):
             (k, err, np.max(np.abs(w), initial=0.0))
     # some parameter really is split over the model axis
     assert any(sl is not None for sl in got["slices"].values())
+    _check_peers(ranks, arch, "grads")
+
+
+def _check_peers(ranks, arch, *names):
+    """Every model rank of every data rank holds what its model rank 0
+    holds, bit for bit: its own copy of each replicated leaf (and the
+    gathered split ones), and the loss and clip norm."""
+    for dr in sorted(ranks):
+        want = ranks[dr][arch]
+        for peer in ranks[dr]["peers"]:
+            got = peer[arch]
+            for key in ("loss", "gnorm"):
+                assert got[key] == want[key], (dr, peer["model_rank"], key)
+            for name in names:
+                assert sorted(got[name]) == sorted(want[name])
+                for k, w in want[name].items():
+                    np.testing.assert_array_equal(
+                        got[name][k], w, err_msg=f"data rank {dr} model rank "
+                        f"{peer['model_rank']} {name} {k}")
 
 
 def check_adamw_update(ranks, refs, out, arch):
@@ -497,6 +475,7 @@ def check_adamw_update(ranks, refs, out, arch):
         for k, w in want.items():
             np.testing.assert_allclose(got[name][k], w, rtol=2e-6, atol=1e-9,
                                        err_msg=f"{name} {k}")
+    _check_peers(ranks, arch, "new_params", "m", "v")
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@
 its split-KV cache, 4 decode steps, the loss and its gradients through
 ``make_train_step``, and one AdamW update (``tests/_torch_tp_worker.py``
 has the procedure and the tolerances; ``test_torch_tensor_parallel.py``
-the 1 x 2 mesh, the checkpoints and the card); and a MoE whose experts
-the axis does not divide.
+the 1 x 2 mesh, the checkpoints and the card); and the refusal of a MoE
+whose experts the axis does not divide.
 """
 import pytest
 
@@ -39,11 +39,25 @@ def test_adamw_update_matches_reference(run, arch):
     tp.check_adamw_update(*run, arch)
 
 
-def test_moe_whose_experts_the_axis_does_not_divide(run):
-    """6 experts over a model axis of 4: each expert's ffn dim is split
-    instead, and the sharded port equals the unsharded one (float32:
-    logits and loss within 1e-5, gradients within 1e-4 of each largest
-    entry)."""
-    got = run[0][0]["ffn_split"]
-    assert got["forward"] < 1e-5 and got["loss"] < 1e-5, got
-    assert got["grads"] < tp.GRAD_RTOL, got
+def test_moe_whose_experts_the_axis_does_not_divide():
+    """6 experts over a model axis of 4: the JAX spec would split each
+    expert's ffn dim instead of whole experts, a layout no config of the
+    zoo meets; ``Model`` refuses it before it allocates, on every rank,
+    and takes 8 experts on the same axis."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    base = configs.get_config("arctic-480b").reduced()
+    for e, refused in ((6, True), (8, False)):
+        cfg = dataclasses.replace(base, n_experts=e)
+        for r in range(MESH[1]):
+            mesh = tp.MeshView(r, MESH)
+            if refused:
+                with pytest.raises(ValueError, match="does not divide its 6"):
+                    Model(cfg, device="cpu", mesh=mesh)
+            else:
+                moe = Model(cfg, device="cpu", mesh=mesh).decoder[0].moe
+                assert moe.shard_dim("w_gate") == 0
+                assert moe.w_gate.shape[0] == e // MESH[1]
