@@ -154,8 +154,9 @@ phase, and fail on the first phase that fails.
     ``build/serve_counts/``, (b) ``--shards 2 --async-flush --max-delay-ms
     25 --theta 0.001``, (c) ``--spill-dir build/spill_launch
     --spill-threshold-bytes 4096 --bg-compact --min-compact-rows 64
-    --theta 0.001`` twice into the same directory (the second run
-    re-spills over the first's store), (d) ``--shards 2 --mesh-data 1`` on
+    --theta 0.001`` twice into the same directory (the second run's
+    store claims generations of its own beside the first's), (d)
+    ``--shards 2 --mesh-data 1`` on
     a one-rank NCCL group; each must exit 0 with its verified lines; its
     wall seconds and the wrapper's launch counters from its output.
 
@@ -229,14 +230,34 @@ phase, and fail on the first phase that fails.
     The sizes of the archs one card holds only in part are printed first,
     and the time of one gloo all-reduce and all-gather on the card by
     size.
+19. The dry run (``launch/dryrun.py``, ``launch/specs.py``,
+    ``roofline/count.py``; plain PyTorch, no kernel) against the card.
+    Its counts of each cell run in a process of their own on fake ``cuda``
+    tensors, beside the card runs.  (a) qwen3-8b, mistral-nemo-12b,
+    starcoder2-7b, seamless-m4t-large-v2 (with frames) and chameleon-34b
+    whole in bf16 on 1 x 1, each a ``DRY_BATCH`` x ``DRY_PROMPT`` prefill
+    into ``DRY_MAX_LEN`` positions and ``DRY_STEPS`` decode steps: the
+    FLOPs ``FlopCounterMode`` counts over the card's prefill and first
+    decode step equal to the dry run's count of the same cell, the
+    argument bytes equal to the real tensors', the predicted peak within
+    ``DRY_PEAK_RTOL`` of ``torch.cuda.max_memory_allocated`` (less what
+    was live before the step and is no argument), a decode step's device
+    busy time (``torch.profiler``) and wall time against the roofline's
+    ``step_time`` (an impossible reading, busy below the bound, fails),
+    and the prefill and decode logits against ``forward`` over the whole
+    sequence within ``_bf16_tol(layers)``.  (b) qwen3-8b cut to
+    ``DRY_TP`` layers on two gloo ranks sharing the card, (1, 2): the
+    collectives of one decode step and one train step, counted at the
+    dispatcher, equal in kind, group, number and bytes to the dry run's on
+    a fake (1, 2) group.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
 spilled path, on each rank of each mesh, and on the count server's, the
 rule server's and the launcher's paths counted apart in
 ``launches_by_path``), phase 16's ``models`` record, phase 17's ``train``
-record, phase 18's ``tensor_parallel`` record and ``{"ok": true,
-"device": {...}}``.  Without a CUDA device, or without the
+record, phase 18's ``tensor_parallel`` record, phase 19's ``dryrun``
+record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 import contextlib
@@ -1642,7 +1663,7 @@ LAUNCH_VARIANTS = (
 def _launch_runs(dev, rows):
     """Phase 15 (4): the ``serve_counts`` launcher as subprocesses, the
     variants side by side (the runs of one variant one after the other, so
-    that the second re-spills over the first's store).  Returns per run its
+    that the second spills beside the first's store).  Returns per run its
     label, wall seconds, store launches and the wrapper's launch counters
     parsed from its output."""
     import shutil
@@ -3291,14 +3312,18 @@ def _tp_rank(rank, world, store, out_dir):
         json.dump(out, f)
 
 
-def _tp_spawn(world, out_dir):
+def _tp_spawn(world, out_dir, target=None):
+    """Run ``target`` (``_tp_rank`` by default) on ``world`` gloo ranks
+    sharing the card; their JSON records, and the seconds it took."""
     import torch.multiprocessing as tmp
+
+    target = target or _tp_rank
 
     out_dir.mkdir(parents=True, exist_ok=True)
     for f in out_dir.glob("*"):
         f.unlink()
     ctx = tmp.get_context("spawn")
-    procs = [ctx.Process(target=_tp_rank, daemon=True,
+    procs = [ctx.Process(target=target, daemon=True,
                          args=(r, world, str(out_dir / "gloo.store"),
                                str(out_dir))) for r in range(world)]
     t = time.perf_counter()
@@ -3315,8 +3340,8 @@ def _tp_spawn(world, out_dir):
                 p.join(10)
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
-        raise AssertionError(f"phase 18, {world} gloo ranks: exit codes "
-                             f"{codes}")
+        raise AssertionError(f"{target.__name__}, {world} gloo ranks: "
+                             f"exit codes {codes}")
     return ([json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(world)], time.perf_counter() - t)
 
@@ -3418,6 +3443,372 @@ def _tensor_parallel(smi):
     rec["(e)"] = {"arch": arch, "layers": layers, "one": e0["one"],
                   "two": e0["two"], "two_rank1": e1["two"],
                   "loss_rtol": e0["loss_rtol"], "norm_rtol": e0["norm_rtol"]}
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# (a): the archs run whole on one card, each a prefill of DRY_BATCH x
+# DRY_PROMPT into DRY_MAX_LEN positions and DRY_STEPS decode steps; the dry
+# run counts the prefill cell and one decode step into that cache
+DRY_ARCHS = ("qwen3-8b", "mistral-nemo-12b", "starcoder2-7b",
+             "seamless-m4t-large-v2", "chameleon-34b")
+DRY_BATCH, DRY_PROMPT, DRY_MAX_LEN, DRY_STEPS = 4, 2048, 2080, 16
+# The predicted peak (the dry run's live fake storages at their most)
+# against torch.cuda.max_memory_allocated less what was live before the
+# step and is no argument.  The caching allocator rounds every block up to
+# 512 bytes (a few thousand blocks a step: under 2 MB); cuBLAS's workspace
+# (32 MiB a stream under CUBLAS_WORKSPACE_CONFIG=:4096:8) exists from the
+# earlier phases and sits in what was live before; a kernel's own scratch
+# (sort, top-k, index) comes from the allocator unseen by the count, a few
+# MB at these shapes.  Against peaks of 5-75 GB that is under 1 %; the
+# limit is 5 % (PERF.md §6 argues it).
+DRY_PEAK_RTOL = 0.05
+# (b): qwen3-8b cut to this many layers on (1, 2); a decode step into
+# DRY_TP_CACHE positions and a train step of one DRY_TP_SEQ sequence
+DRY_TP = ("qwen3-8b", 8)
+DRY_TP_CACHE, DRY_TP_SEQ = 528, 512
+DRY_REDUCED = [
+    "mesh 16 x 16 (256 ranks) cut to one card, 1 x 1, for (a): what one "
+    "card measures; (b) on (1, 2) gloo ranks sharing the card",
+    f"prefill_32k (32 x 32,768) cut to {DRY_BATCH} x {DRY_PROMPT} into "
+    f"{DRY_MAX_LEN} cache positions: chameleon-34b's 68.6 GB of weights "
+    "leave about 10 GB of the card",
+    f"decode_32k (128 sequences, a 32,768-position cache) cut to "
+    f"{DRY_BATCH} x {DRY_MAX_LEN}, {DRY_STEPS} steps",
+    "train_4k and long_500k not run in (a): AdamW's moments do not fit "
+    "beside these weights on one card; long_500k is for SSM archs",
+    f"(b) qwen3-8b cut to {DRY_TP[1]} of 36 layers; decode 1 x "
+    f"{DRY_TP_CACHE}, train 1 x {DRY_TP_SEQ}",
+]
+
+
+def _dry_shapes():
+    from repro_torch.models.config import ShapeSpec
+    return (ShapeSpec("dry_prefill", DRY_PROMPT, DRY_BATCH, "prefill"),
+            ShapeSpec("dry_decode", DRY_MAX_LEN, DRY_BATCH, "decode"))
+
+
+def _dry_tp_shapes():
+    from repro_torch.models.config import ShapeSpec
+    return (ShapeSpec("dry_tp_decode", DRY_TP_CACHE, 1, "decode"),
+            ShapeSpec("dry_tp_train", DRY_TP_SEQ, 1, "train"))
+
+
+def _dry_record(count, cfg, shape, n_devices):
+    from repro_torch.roofline.analysis import analyze, model_flops
+
+    roof = analyze(count, model_flops(cfg, shape), n_devices)
+    return {"flops": count.flops, "bytes_accessed": count.bytes_accessed,
+            "argument_bytes": count.argument_bytes,
+            "peak_bytes": count.peak_bytes, "temp_bytes": count.temp_bytes,
+            "t_compute_ms": roof.t_compute * 1e3,
+            "t_memory_ms": roof.t_memory * 1e3,
+            "t_collective_ms": roof.t_collective * 1e3,
+            "step_time_ms": roof.step_time * 1e3,
+            "collectives": [list(c) for c in count.collective_log],
+            "n_ops": count.n_ops, "count_s": count.seconds}
+
+
+def _dry_fake(out_path):
+    """Phase 19's dry-run counts on fake ``cuda`` tensors, in a process of
+    its own (the dry run makes its own fake process group): (a) every
+    arch's prefill and decode cell on 1 x 1, then (b) qwen3-8b's on a
+    fake (1, 2) group."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in DRY_ARCHS:
+        cfg = get_config(arch)
+        for shape in _dry_shapes():
+            max_len = DRY_MAX_LEN if shape.kind == "prefill" else None
+            _, count, _, _ = dryrun.count_cell(arch, shape, None,
+                                               device="cuda", max_len=max_len)
+            out[f"{arch} {shape.kind}"] = _dry_record(count, cfg, shape, 1)
+    arch, layers = DRY_TP
+    cfg = dryrun._depth_variant(get_config(arch), layers)
+    with dryrun.fake_world(2):
+        mesh = dryrun.fake_mesh(1, 2)
+        for shape in _dry_tp_shapes():
+            _, count, _, _ = dryrun.count_cell(arch, shape, mesh,
+                                               device="cuda", cfg_override=cfg)
+            out[f"tp {shape.kind}"] = _dry_record(count, cfg, shape, 2)
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out))
+
+
+def _dry_counted(fn, args):
+    """``fn(*args)`` under the dry run's counters on real tensors: its
+    result, the count and the peak the card's allocator saw, less what was
+    live before and is no argument."""
+    import torch
+
+    from repro_torch.roofline.count import count_step
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, count = count_step(fn, args, track_memory=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - (before - count.argument_bytes)
+    return out, count, peak
+
+
+def _dry_card(dev, arch, smi):
+    """(a) on the card: ``arch`` whole in bf16 from seed 0, the prefill and
+    the first decode step counted (FLOPs, arguments, the allocator's peak),
+    the other decode steps timed (wall) and profiled (busy), and the
+    logits against ``forward``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import specs
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pshape, _ = _dry_shapes()
+    kind, args, info = specs.input_specs(
+        arch, pshape, None, device="cuda:0", mode=contextlib.nullcontext(),
+        max_len=DRY_MAX_LEN)
+    model = info["model"]
+    cfg = model.cfg
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    args[1].copy_(torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (DRY_BATCH, DRY_PROMPT))))
+    frames = None
+    if cfg.encdec:
+        frames = args[2]
+        frames.copy_(torch.as_tensor(rng.standard_normal(frames.shape,
+                                                         dtype=np.float32)))
+    init_s = time.perf_counter() - t0
+    (logits, cache), pre, pre_peak = _dry_counted(specs.step_fn(kind, info),
+                                                  args)
+    got = [logits[:, -1:]]
+    toks = [logits[:, -1:, :cfg.vocab_size].argmax(-1).to(torch.int32)]
+    decode = specs.step_fn("decode", info)
+    (lg, cache), dec, dec_peak = _dry_counted(
+        decode, (args[0], cache, toks[-1], DRY_PROMPT))
+    got.append(lg)
+    toks.append(lg[..., :cfg.vocab_size].argmax(-1).to(torch.int32))
+    pos = DRY_PROMPT + 1
+    timed = (DRY_STEPS - 1) // 2
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed):
+        lg, cache = model.decode_step(cache, toks[-1], pos)
+        got.append(lg)
+        toks.append(lg[..., :cfg.vocab_size].argmax(-1).to(torch.int32))
+        pos += 1
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / timed
+    traced = DRY_STEPS - 1 - timed
+    trace = ROOT / "build" / "traces" / f"dryrun_decode_{arch}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            lg, cache = model.decode_step(cache, toks[-1], pos)
+            got.append(lg)
+            toks.append(lg[..., :cfg.vocab_size].argmax(-1).to(torch.int32))
+            pos += 1
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    kern, _ = _device_intervals(trace)
+    if not kern:
+        raise AssertionError(f"{arch}: the decode trace holds no kernel")
+    busy_ms = _length(_union(kern)) / 1e3 / traced
+    del cache
+    torch.cuda.empty_cache()
+    # prefill + DRY_STEPS - 1 decode steps against forward over the sequence
+    seq = torch.cat([args[1].long()] + [x.long() for x in
+                                         toks[:DRY_STEPS - 1]], dim=1)
+    want = model.forward(seq, frames=frames)[:, DRY_PROMPT - 1:]
+    got = torch.cat(got[:DRY_STEPS], dim=1)
+    rel, mx = _rel_rows(got, want, cfg.vocab_size)
+    tol = _bf16_tol(cfg.n_layers)
+    if not (torch.isfinite(got).all() and rel <= tol):
+        raise AssertionError(f"{arch}: prefill/decode logits differ from "
+                             f"forward by {rel:.4f} > {tol:.4f}")
+    out = {"arch": arch, "layers": cfg.n_layers, "n_params": model.n_params(),
+           "init_s": init_s, "rel_l2": rel, "max_abs_err": mx, "tol": tol,
+           "prefill": {"flops": pre.flops, "argument_bytes":
+                       pre.argument_bytes, "peak_bytes": pre_peak},
+           "decode": {"flops": dec.flops, "argument_bytes":
+                      dec.argument_bytes, "peak_bytes": dec_peak,
+                      "busy_ms_per_step": busy_ms,
+                      "wall_ms_per_step": wall_ms,
+                      "kernels_per_step": len(kern) / traced},
+           "seconds": time.perf_counter() - t0}
+    print(f"   {arch}: {cfg.n_layers} layers, {model.n_params():,} "
+          f"parameters in bf16, init {init_s:.3f} s; prefill {DRY_BATCH}x"
+          f"{DRY_PROMPT} + {DRY_STEPS} decode steps vs forward: relative L2 "
+          f"{rel:.4e} (tol {tol:.4f}) [{smi}]", flush=True)
+    del args, info, model, want, got, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dry_rank(rank, world, store, out_dir):
+    """(b) on one of two gloo ranks sharing the card: qwen3-8b cut to
+    ``DRY_TP`` layers on (1, 2), one decode step and one train step from
+    seed 0, their collectives counted at the dispatcher."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import _depth_variant
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline.count import count_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TP_JOIN_S))
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, 2, device_type="cpu")
+        arch, layers = DRY_TP
+        cfg = _depth_variant(get_config(arch), layers)
+        for shape in _dry_tp_shapes():
+            kind, args, info = specs.input_specs(
+                arch, shape, mesh, cfg_override=cfg, device="cuda:0",
+                mode=contextlib.nullcontext())
+            info["model"].init(torch.Generator(device=dev).manual_seed(0))
+            toks = torch.as_tensor(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (1, shape.seq_len + 1)), dtype=torch.int32)
+            if kind == "train":
+                args[2]["tokens"].copy_(toks[:, :-1])
+                args[2]["labels"].copy_(toks[:, 1:])
+            else:
+                args[2].copy_(toks[:, :1])
+            res, count = count_step(specs.step_fn(kind, info), args,
+                                    track_memory=False)
+            value = res[1]["loss"] if kind == "train" else res[0]
+            out[kind] = {"collectives": [list(c) for c in
+                                         count.collective_log],
+                         "flops": count.flops,
+                         "finite": bool(torch.isfinite(value).all())}
+            del args, info, res, value
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _dry_run(dev, smi):
+    """Phase 19 (see the module docstring)."""
+    import torch
+
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fake_path = out_dir / "fake.json"
+    fake_path.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke._dry_fake({str(fake_path)!r})")
+    fake_proc = subprocess.Popen([sys.executable, "-c", code])
+    try:
+        ranks, tp_s = _tp_spawn(2, out_dir / "tp", target=_dry_rank)
+        cells = [_dry_card(dev, arch, smi) for arch in DRY_ARCHS]
+        if fake_proc.wait(timeout=600) != 0:
+            raise AssertionError(f"the dry run's counts exited "
+                                 f"{fake_proc.returncode}")
+    finally:
+        if fake_proc.poll() is None:
+            fake_proc.kill()
+            fake_proc.wait(10)
+    fake = json.loads(fake_path.read_text())
+    print(f"   the dry run's counts on fake cuda tensors: "
+          f"{fake['seconds']:.1f} s in a process of their own", flush=True)
+    rec = {"card": smi, "reduced": DRY_REDUCED, "peak_rtol": DRY_PEAK_RTOL,
+           "fake_seconds": fake["seconds"], "cells": {}}
+    for c in cells:
+        arch = c["arch"]
+        row = {"layers": c["layers"], "n_params": c["n_params"],
+               "rel_l2": c["rel_l2"], "tol": c["tol"],
+               "seconds": c["seconds"]}
+        for kind in ("prefill", "decode"):
+            card, count = c[kind], fake[f"{arch} {kind}"]
+            if card["flops"] != count["flops"]:
+                raise AssertionError(f"{arch} {kind}: the card's step counts "
+                                     f"{card['flops']:.6e} FLOPs, the dry "
+                                     f"run {count['flops']:.6e}")
+            if card["argument_bytes"] != count["argument_bytes"]:
+                raise AssertionError(f"{arch} {kind}: argument bytes "
+                                     f"{card['argument_bytes']} on the card, "
+                                     f"{count['argument_bytes']} counted")
+            rel = (card["peak_bytes"] - count["peak_bytes"]) / \
+                count["peak_bytes"]
+            if abs(rel) > DRY_PEAK_RTOL:
+                raise AssertionError(f"{arch} {kind}: peak "
+                                     f"{card['peak_bytes']} on the card, "
+                                     f"{count['peak_bytes']} predicted "
+                                     f"({rel:+.4f} > {DRY_PEAK_RTOL})")
+            row[kind] = dict(card, predicted_peak_bytes=count["peak_bytes"],
+                             peak_rel=rel, count=count)
+            line = (f"   {arch} {kind}: FLOPs {card['flops']:.6e} (card == "
+                    f"count), arguments {card['argument_bytes'] / 2**30:.3f} "
+                    f"GiB (equal), peak {card['peak_bytes'] / 2**30:.3f} GiB "
+                    f"vs predicted {count['peak_bytes'] / 2**30:.3f} GiB "
+                    f"({100 * rel:+.3f} %); roofline: compute "
+                    f"{count['t_compute_ms']:.3f} ms, memory "
+                    f"{count['t_memory_ms']:.3f} ms")
+            if kind == "decode":
+                busy, bound = card["busy_ms_per_step"], count["step_time_ms"]
+                if busy < bound:
+                    raise AssertionError(
+                        f"{arch}: a decode step kept the card busy "
+                        f"{busy:.3f} ms, below the roofline's {bound:.3f} ms "
+                        "(an impossible reading)")
+                row[kind].update(busy_over_bound=busy / bound,
+                                 wall_over_bound=card["wall_ms_per_step"]
+                                 / bound)
+                line += (f"; a step busy {busy:.3f} ms "
+                         f"({busy / bound:.2f}x the bound), wall "
+                         f"{card['wall_ms_per_step']:.3f} ms "
+                         f"({card['wall_ms_per_step'] / bound:.2f}x), "
+                         f"{card['kernels_per_step']:.0f} kernels")
+            print(line + f" [{smi}]", flush=True)
+        rec["cells"][arch] = row
+    tp = {"arch": DRY_TP[0], "layers": DRY_TP[1], "seconds": tp_s}
+    for kind in ("decode", "train"):
+        count = fake[f"tp {kind}"]["collectives"]
+        for r in ranks:
+            if not r[kind]["finite"]:
+                raise AssertionError(f"(b) rank {r['rank']} {kind}: "
+                                     "non-finite output")
+            if r[kind]["collectives"] != count:
+                raise AssertionError(
+                    f"(b) {kind} on rank {r['rank']}: the gloo collectives "
+                    f"{r[kind]['collectives'][:6]}... ({len(r[kind]['collectives'])}) "
+                    f"differ from the dry run's {count[:6]}... ({len(count)})")
+        kinds = {}
+        for k, n, b in count:
+            kinds.setdefault(k, [0, 0])
+            kinds[k][0] += 1
+            kinds[k][1] += b
+        tp[kind] = {"collectives": len(count), "by_kind": kinds,
+                    "flops": ranks[0][kind]["flops"]}
+        print(f"   (b) {DRY_TP[0]}, {DRY_TP[1]} layers, (1, 2) gloo ranks: "
+              f"one {kind} step's collectives equal the dry run's on a fake "
+              f"(1, 2) group on both ranks: {len(count)} ("
+              + ", ".join(f"{k} {n} of {b / 2**20:.3f} MiB"
+                          for k, (n, b) in kinds.items()) + f") [{smi}]",
+              flush=True)
+    rec["tp"] = tp
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -4240,6 +4631,16 @@ def main() -> int:
     tensor_parallel = _tensor_parallel(smi)
     _done(t0)
 
+    # ---- 19. the dry run against the card ----------------------------------
+    t0 = _phase("19. the dry run against the card: five archs whole on 1 x 1 "
+                "(FLOPs, argument bytes, peak, decode busy time against the "
+                "count), qwen3-8b's collectives on (1, 2) gloo ranks")
+    torch.cuda.empty_cache()
+    print(f"   card: {smi}; allocated in this process at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    dry = _dry_run(dev, smi)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -4334,6 +4735,7 @@ def main() -> int:
     print(json.dumps({"models": zoo}))
     print(json.dumps({"train": train}))
     print(json.dumps({"tensor_parallel": tensor_parallel}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,9 +10,12 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means the card.  Asking for CUDA where there is none raises:
-    the host runs only when the caller passes ``device="cpu"``."""
+    the host runs only when the caller passes ``device="cpu"``.  Under a
+    ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) a ``cuda``
+    device is fake and needs no card."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and \
+            torch._guards.detect_fake_mode() is None:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the host")
     return dev

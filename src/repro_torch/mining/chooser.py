@@ -271,7 +271,10 @@ def backend_for_db(db, *, mesh=None, max_len: int = 0, use_kernel: bool = True,
     :class:`~repro_torch.mining.spill.SpilledDB`, or anything exposing
     bits/weights/vocab/n_rows/n_classes.  Returns ``(backend, choice)``.
     Every backend counts on the DB's device; ``spilled`` writes the DB into
-    ``default_spill_dir()`` unless it is a ``SpilledDB`` already.
+    ``$REPRO_TORCH_SPILL_DIR`` unless it is a ``SpilledDB`` already, or,
+    without the variable, into a temporary directory that is deleted with
+    the store (garbage collection or ``SpilledBackend.close()``; the JAX
+    package leaves it behind).
 
     Engine imports stay function-level: the chooser is imported by the
     backends' ``traits()`` hook, so module-level engine imports would cycle.
@@ -290,10 +293,15 @@ def backend_for_db(db, *, mesh=None, max_len: int = 0, use_kernel: bool = True,
         return miner.backend(_host(db.bits), _host(db.weights),
                              db.vocab), choice
     if choice.name == "spilled":
-        from .spill import SpilledBackend, SpilledDB, default_spill_dir
-        sdb = db if isinstance(db, SpilledDB) else SpilledDB.spill(
-            db.vocab, _host(db.bits), _host(db.weights), int(db.n_rows),
-            int(db.n_classes), default_spill_dir(), device=device)
+        from .spill import SpilledBackend, SpilledDB, own_directory, spill_root
+        sdb = db
+        if not isinstance(db, SpilledDB):
+            root, made = spill_root()
+            sdb = SpilledDB.spill(
+                db.vocab, _host(db.bits), _host(db.weights), int(db.n_rows),
+                int(db.n_classes), root, device=device)
+            if made:
+                own_directory(sdb)
         return SpilledBackend(sdb, use_kernel=use_kernel), choice
     if choice.name == "streaming":
         from .backend import StreamingBackend

@@ -98,12 +98,28 @@ _M_PREFETCH_ERRORS = REGISTRY.counter("spill_prefetch_errors_total")
 
 def default_spill_dir() -> str:
     """The spill root when none was configured: ``$REPRO_TORCH_SPILL_DIR``
-    or a per-process tmp directory (callers own cleanup of explicit dirs)."""
+    or a fresh tmp directory (callers own cleanup of explicit dirs)."""
+    return spill_root()[0]
+
+
+def spill_root() -> Tuple[str, bool]:
+    """``(directory, made)``: ``$REPRO_TORCH_SPILL_DIR`` (``made`` False:
+    the caller's, never deleted here), or a fresh ``mkdtemp`` directory
+    (``made`` True: whoever spills into it deletes it, see
+    ``own_directory``)."""
     root = os.environ.get("REPRO_TORCH_SPILL_DIR")
     if root:
-        return root
+        return root, False
     import tempfile
-    return tempfile.mkdtemp(prefix="repro-spill-")
+    return tempfile.mkdtemp(prefix="repro-spill-"), True
+
+
+def own_directory(db: "SpilledDB") -> None:
+    """Delete ``db.directory`` once ``db`` is garbage-collected, or at
+    ``SpilledBackend.close()``: for a store in a temporary directory made
+    for it (``spill_root``), which nothing else would delete."""
+    import weakref
+    db._owned = weakref.finalize(db, shutil.rmtree, db.directory, True)
 
 
 def _atomic_save(path: str, arr: np.ndarray) -> None:
@@ -607,6 +623,14 @@ class SpilledBackend:
 
     def item_counts(self):
         return None
+
+    def close(self) -> None:
+        """Delete the store's directory now where the backend's maker owns
+        it (``backend_for_db`` without ``$REPRO_TORCH_SPILL_DIR``); else
+        nothing.  The backend counts no more after it."""
+        owned = getattr(self.db, "_owned", None)
+        if owned is not None:
+            owned()
 
     def traits(self):
         """Traits of rows sampled over every segment, with the TRUE on-disk

@@ -70,8 +70,10 @@ class Model(ParamModule):
     def abstract(self) -> Dict[str, torch.Tensor]:
         """The JAX package's ``abstract_params``: every parameter as a
         tensor on the ``meta`` device (shape and dtype, no storage), keyed
-        by its ``state_dict`` name."""
-        meta = ParamModule(self.param_specs, self.dtype, torch.device("meta"))
+        by its ``state_dict`` name; over the model's mesh, this rank's
+        shard of it (``named_specs`` keeps the full shapes)."""
+        meta = ParamModule(self.param_specs, self.dtype, torch.device("meta"),
+                           self.mesh)
         return {k: v.detach() for k, v in meta.named_parameters()}
 
     def shardings(self, mesh=None) -> Dict[str, tuple]:

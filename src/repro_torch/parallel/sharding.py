@@ -216,6 +216,27 @@ def _coordinate(mesh: Any, axis: str) -> int:
     return int(mesh.get_local_rank(axis))
 
 
+class MeshView:
+    """Rank ``model_rank`` of a (data, model) mesh of ``shape`` as it sees
+    the mesh, without a process group: what ``Model``, ``restore`` and
+    ``constrain`` read of a ``DeviceMesh`` to take a replicated array's
+    slice, which moves no data between ranks (its group is never used)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, model_rank: int, shape: Tuple[int, int]):
+        self.rank, self.shape = model_rank, shape
+
+    def get_local_rank(self, name: str) -> int:
+        return self.rank if name == MODEL else 0
+
+    def __getitem__(self, name: str) -> "MeshView":
+        return self
+
+    def get_group(self):
+        return None
+
+
 def mesh_model_axis(mesh: Any) -> Optional[ModelAxis]:
     """The 'model' axis of ``mesh`` as this rank sees it; None where it
     is 1."""

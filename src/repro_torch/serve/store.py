@@ -296,10 +296,7 @@ class VersionedDB:
             # replaced one is deleted AFTER the swap (build-before-drop on
             # disk too); the counter bump is atomic so a background build
             # and an explicit compact() never share a directory
-            with self._store_lock:
-                gen = self._spill_gen
-                self._spill_gen += 1
-            gen_dir = os.path.join(self._spill_dir, f"gen{gen:05d}")
+            gen_dir = self._claim_generation()
             return SpilledDB.spill(vocab, bits, weights, self.n_rows,
                                    self.n_classes, gen_dir,
                                    chunk_rows=self.chunk_rows,
@@ -312,6 +309,24 @@ class VersionedDB:
         return DenseDB.from_arrays(vocab, bits, weights,
                                    self.n_rows, self.n_classes,
                                    device=self.device)
+
+    def _claim_generation(self) -> str:
+        """A generation directory under the spill root that no other
+        store holds: the counter's next ``gen%05d`` that ``os.mkdir`` can
+        create (another store over the same root, in this process or
+        another, has made the ones it skips).  The JAX package counts from
+        0 in every store and re-spills into another store's ``gen00000``."""
+        os.makedirs(self._spill_dir, exist_ok=True)
+        while True:
+            with self._store_lock:
+                gen = self._spill_gen
+                self._spill_gen += 1
+            gen_dir = os.path.join(self._spill_dir, f"gen{gen:05d}")
+            try:
+                os.mkdir(gen_dir)
+            except FileExistsError:
+                continue
+            return gen_dir
 
     # -- introspection --------------------------------------------------------
     @property

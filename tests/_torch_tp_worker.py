@@ -42,6 +42,10 @@ import traceback
 
 import numpy as np
 
+# a rank's view of a mesh without a process group, which the tests import
+# from here
+from repro_torch.parallel.sharding import MeshView  # noqa: F401
+
 ARCHS = ["arctic-480b", "chameleon-34b", "jamba-1.5-large-398b",
          "llama4-maverick-400b-a17b", "mamba2-2.7b", "mistral-nemo-12b",
          "qwen3-32b", "qwen3-8b", "seamless-m4t-large-v2", "starcoder2-7b"]
@@ -57,27 +61,6 @@ REFERENCE_SPLIT = (("jamba-1.5-large-398b", "mistral-nemo-12b", "qwen3-32b"),
 TIMEOUT_S = 240
 TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_RTOL = 1e-4
-
-
-class MeshView:
-    """Rank ``model_rank`` of a (data, model) mesh of ``shape`` as it sees
-    the mesh, without a process group: what ``Model``, ``restore`` and
-    ``constrain`` read of a ``DeviceMesh`` to take a replicated array's
-    slice, which moves no data between ranks (its group is never used)."""
-
-    mesh_dim_names = ("data", "model")
-
-    def __init__(self, model_rank, shape):
-        self.rank, self.shape = model_rank, shape
-
-    def get_local_rank(self, name):
-        return self.rank if name == "model" else 0
-
-    def __getitem__(self, name):
-        return self
-
-    def get_group(self):
-        return None
 
 
 def inputs(cfg):

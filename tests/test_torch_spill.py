@@ -645,3 +645,127 @@ def test_spilled_store_traits_sample_every_segment(tmp_path):
     jt = js.VersionedCountBackend(jstore).traits()
     assert (jt.n_unique, jt.nbytes) == (got.n_unique, got.nbytes)
     assert jt.density != got.density
+
+
+# ---------------------------------------------------------------------------
+# the spill root: generations no other store holds, temporary stores deleted
+# (deliberate differences from the JAX package, ROADMAP §3)
+# ---------------------------------------------------------------------------
+
+SPILL_PROBES = [(0,), (1, 2), (3, 4, 5), (9,), (2, 7)]
+
+
+def test_two_stores_over_one_spill_root_keep_their_generations(
+        tmp_path, monkeypatch):
+    """Two ``VersionedDB``s over one ``$REPRO_TORCH_SPILL_DIR`` spill into
+    generations of their own and each reads back its own rows, through a
+    compaction too; the JAX package's second store spills into the first
+    one's ``gen00000`` and the first one no longer counts its rows."""
+    import repro.serve as js
+    from repro_torch.serve import VersionedDB
+
+    root = tmp_path / "spill"
+    monkeypatch.setenv("REPRO_TORCH_SPILL_DIR", str(root))
+    rng = np.random.default_rng(21)
+    tx_a, tx_b = _db(rng, 90, 10, p=0.4), _db(rng, 70, 10, p=0.6)
+    want_a = VersionedDB(tx_a, device="cpu").counts(SPILL_PROBES)
+    want_b = VersionedDB(tx_b, device="cpu").counts(SPILL_PROBES)
+    a = VersionedDB(tx_a, spill=True, chunk_rows=16, device="cpu")
+    b = VersionedDB(tx_b, spill=True, chunk_rows=16, device="cpu")
+    assert a.resident == b.resident == "spilled"
+    assert sorted(os.listdir(root)) == ["gen00000", "gen00001"]
+    assert {a.base.directory, b.base.directory} == {
+        str(root / "gen00000"), str(root / "gen00001")}
+    np.testing.assert_array_equal(a.counts(SPILL_PROBES), want_a)
+    np.testing.assert_array_equal(b.counts(SPILL_PROBES), want_b)
+    # A compacts into a generation of its own and drops its old one
+    extra = _db(rng, 30, 10, p=0.4)
+    a.append(extra)
+    a.compact()
+    assert a.base.directory == str(root / "gen00002")
+    assert sorted(os.listdir(root)) == ["gen00001", "gen00002"]
+    np.testing.assert_array_equal(
+        a.counts(SPILL_PROBES),
+        VersionedDB(tx_a + extra, device="cpu").counts(SPILL_PROBES))
+    np.testing.assert_array_equal(b.counts(SPILL_PROBES), want_b)
+    a.close()
+    b.close()
+
+    # the reference: both stores in gen00000, the second over the first
+    jroot = str(tmp_path / "jax")
+    ja = js.VersionedDB(tx_a, spill=True, spill_dir=jroot, chunk_rows=16)
+    jb = js.VersionedDB(tx_b, spill=True, spill_dir=jroot, chunk_rows=16)
+    assert ja.base.directory == jb.base.directory == \
+        os.path.join(jroot, "gen00000")
+    np.testing.assert_array_equal(jb.counts(SPILL_PROBES), want_b)
+    try:
+        got = ja.counts(SPILL_PROBES)
+    except Exception:       # its segments are another store's now
+        got = None
+    assert got is None or not np.array_equal(got, want_a)
+
+
+def test_a_store_skips_generations_another_process_made(tmp_path):
+    """A generation directory that exists already (another process's
+    store, or a crashed one's) is never spilled into."""
+    from repro_torch.serve import VersionedDB
+
+    root = tmp_path / "spill"
+    (root / "gen00000").mkdir(parents=True)
+    (root / "gen00000" / "theirs").write_text("kept")
+    rng = np.random.default_rng(22)
+    tx = _db(rng, 60, 8, p=0.5)
+    db = VersionedDB(tx, spill=True, spill_dir=str(root), chunk_rows=16,
+                     device="cpu")
+    assert db.base.directory == str(root / "gen00001")
+    assert (root / "gen00000" / "theirs").read_text() == "kept"
+    np.testing.assert_array_equal(
+        db.counts(SPILL_PROBES),
+        VersionedDB(tx, device="cpu").counts(SPILL_PROBES))
+    db.close()
+
+
+def test_backend_for_db_deletes_the_spill_directory_it_made(
+        tmp_path, monkeypatch):
+    """Without ``$REPRO_TORCH_SPILL_DIR``, ``backend_for_db(...,
+    name="spilled")`` spills into a temporary directory that goes with the
+    store: on ``close()`` or once the backend is garbage-collected.  A
+    directory the caller names stays.  The JAX package's temporary
+    directory stays behind."""
+    import gc
+
+    monkeypatch.delenv("REPRO_TORCH_SPILL_DIR", raising=False)
+    monkeypatch.delenv("REPRO_SPILL_DIR", raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+
+    def made():
+        return sorted(p.name for p in tmp_path.glob("repro-spill-*"))
+
+    rng = np.random.default_rng(23)
+    tx = _db(rng, 120, 10, p=0.4)
+    ddb = tm.DenseDB.encode(tx, device=CPU)
+    backend, choice = tm.backend_for_db(ddb, name="spilled")
+    assert choice.name == "spilled"
+    assert made() == [os.path.basename(backend.db.directory)]
+    assert mine_frequent_backend(backend, 30) == mine_frequent(tx, 30)
+    del backend
+    gc.collect()
+    assert made() == []
+
+    backend, _ = tm.backend_for_db(ddb, name="spilled")
+    assert len(made()) == 1
+    backend.close()
+    assert made() == []
+
+    monkeypatch.setenv("REPRO_TORCH_SPILL_DIR", str(tmp_path / "mine"))
+    backend, _ = tm.backend_for_db(ddb, name="spilled")
+    backend.close()
+    del backend
+    gc.collect()
+    assert (tmp_path / "mine" / MANIFEST_NAME).exists()
+    assert made() == []
+
+    jb, _ = jm.backend_for_db(jm.DenseDB.encode(tx), name="spilled")
+    del jb
+    gc.collect()
+    assert len(made()) == 1
