@@ -250,14 +250,32 @@ phase, and fail on the first phase that fails.
     collectives of one decode step and one train step, counted at the
     dispatcher, equal in kind, group, number and bytes to the dry run's on
     a fake (1, 2) group.
+20. The seven examples under ``examples/torch/`` on the card, in this
+    process (``runpy`` with ``sys.argv`` set and ``--device cuda``, no call
+    wrapped in ``try``: an example's failed assertion fails the phase), the
+    tuning table unset: each at its default arguments
+    (``minority_report_census`` at ``EXAMPLE_CENSUS_PY``), then
+    ``streaming_bigdata`` with ``--backend streaming`` at
+    ``EXAMPLE_STREAM_ROWS`` rows and ``--backend auto`` at
+    ``EXAMPLE_BIG_ROWS``, and ``count_server EXAMPLE_BIG_ROWS``, each with
+    its own host oracle; the cuts (``EXAMPLE_CUTS``) are printed first.  For each run: the wall time, the
+    exactness line the example prints, and K1's, K2's and K3's launches
+    (``ops.KERNEL_LAUNCHES_BY_ACCUM`` and ``KERNEL_LAUNCHES_INTO`` read
+    before and after).  Fails unless every example that counts on the
+    device launched K1 or K3, and unless the wrapper's plain version
+    (``ops.itemset_counts_ref_blocked``, counted for the phase) ran no
+    time.  Then ``python -m repro_torch.launch.analyze --self-test`` and
+    the lint's gate on this host, both exiting 0.  (``_example_oracles``,
+    not a phase, times the 1M-row runs' host oracles apart.)
 
 The last lines are the card's name and power limit, the kernels' JSON
 record (K1, K2 and K3, the accumulate-into launch; with the launches on the
 spilled path, on each rank of each mesh, and on the count server's, the
-rule server's and the launcher's paths counted apart in
+rule server's, the launcher's and the examples' paths counted apart in
 ``launches_by_path``), phase 16's ``models`` record, phase 17's ``train``
 record, phase 18's ``tensor_parallel`` record, phase 19's ``dryrun``
-record and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+record, phase 20's ``examples`` record and ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 import contextlib
@@ -3812,6 +3830,192 @@ def _dry_run(dev, smi):
     return rec
 
 
+# Phase 20: the seven examples under examples/torch/, each at its default
+# arguments, then streaming_bigdata and count_server at the paper's §4.3
+# size, each with its own host oracle.  Two cuts keep the phase under 180 s
+# (on the card, NVIDIA H100 80GB HBM3 at 700 W, the uncut phase took
+# 293.4 s): minority_report_census runs one p_y of its three (the three
+# took 110.5 s, the pure-Python full FP-growth baseline 20.4-26.5 s of
+# each, the three engines 1.3 s at p_y 0.01 and 35.3 s at 0.25), and
+# streaming_bigdata --backend streaming runs
+# EXAMPLE_STREAM_ROWS rows (83.3 s at 1,000,000: 6,956 host-driven chunk
+# counts of 1,024 rows, and its host oracle, 19.4 s in _example_oracles).
+EXAMPLE_BIG_ROWS = 1_000_000
+EXAMPLE_STREAM_ROWS = 500_000
+EXAMPLE_CENSUS_PY = "0.01"
+EXAMPLE_CUTS = (
+    f"minority_report_census at p_y {EXAMPLE_CENSUS_PY} only (its default "
+    "runs 0.01, 0.05 and 0.25)",
+    f"streaming_bigdata --backend streaming at {EXAMPLE_STREAM_ROWS} rows, "
+    f"not {EXAMPLE_BIG_ROWS}",
+)
+EXAMPLE_RUNS = (
+    ("quickstart", ()),
+    ("incremental_mining", ()),
+    ("corpus_pattern_mining", ()),
+    ("count_server", ()),
+    ("rule_server", ()),
+    ("streaming_bigdata", ()),
+    ("minority_report_census", (EXAMPLE_CENSUS_PY,)),
+    ("streaming_bigdata", ("--rows", str(EXAMPLE_STREAM_ROWS),
+                           "--backend", "streaming")),
+    ("streaming_bigdata", ("--rows", str(EXAMPLE_BIG_ROWS),
+                           "--backend", "auto")),
+    ("count_server", (str(EXAMPLE_BIG_ROWS),)),
+)
+# the paper-faithful host engine only: no count reaches the device
+EXAMPLE_HOST_ONLY = ("incremental_mining",)
+# the line each example prints once its own exactness assertions hold
+EXAMPLE_EXACT = {
+    "quickstart": r"engines agree on all \d+ rules",
+    "incremental_mining": r"batch 3: .* exact match",
+    "corpus_pattern_mining": r"planted pattern recovered exactly",
+    "count_server": r"incremental frequent set == full re-mine",
+    "rule_server": r"append -> v2 .* still == host oracle",
+    "streaming_bigdata": r"identical to uninterrupted run",
+    "minority_report_census": r"identical across engines",
+}
+
+
+def _example_oracles(smi, rows=EXAMPLE_BIG_ROWS):
+    """The 1M-row examples' host oracles timed apart, on their own data:
+    what decides phase 20's cuts.  Not a phase: a script calls it before
+    ``_examples`` (``build/phase20.py``, README)."""
+    import numpy as np
+
+    from repro_torch.core import (brute_force_counts, mine_frequent,
+                                  minority_report)
+    from repro_torch.core.incremental import ceil_count
+    from repro_torch.data import bernoulli_db
+
+    out = {}
+    t = time.perf_counter()
+    tx, y = bernoulli_db(rows, 40, p_x=0.15, p_y=0.03, seed=7)
+    t1 = time.perf_counter()
+    minority_report(tx, y, min_support=0.002, min_confidence=0.02)
+    out["streaming_bigdata"] = dict(bernoulli_db_s=t1 - t,
+                                    minority_report_s=time.perf_counter()
+                                    - t1)
+    del tx, y
+    t = time.perf_counter()
+    tx, _ = bernoulli_db(rows, 32, p_x=0.15, p_y=0.05, seed=3)
+    t1 = time.perf_counter()
+    _ = {a: sum(1 for r in tx if a in r) for a in range(32)}
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    flat = sorted({tuple(rng.choice(32, size=k + 1, replace=False).tolist())
+                   for k in rng.integers(0, 3, 24)})
+    brute_force_counts(tx, flat)
+    t3 = time.perf_counter()
+    batch, _ = bernoulli_db(1000, 32, p_x=0.22, p_y=0.05, seed=9)
+    mine_frequent([list(r) for r in tx] + [list(r) for r in batch],
+                  ceil_count(0.06 * (rows + 1000)))
+    out["count_server"] = dict(bernoulli_db_s=t1 - t, item_counts_s=t2 - t1,
+                               brute_force_counts_s=t3 - t2,
+                               mine_frequent_s=time.perf_counter() - t3)
+    for name, parts in out.items():
+        print(f"   {name} at {rows} rows, host oracle apart: "
+              + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in parts.items())
+              + f" [{smi}]", flush=True)
+    return out
+
+
+class _Tee(io.TextIOBase):
+    """Writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.buf.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _examples(dev, smi):
+    """Phase 20: the examples on the card (see the module docstring).
+    Returns each run's wall time, exactness line and launches, the launches
+    summed, and the lint's two exits."""
+    import runpy
+
+    import torch
+
+    from repro_torch.kernels.itemset_count import ops
+    from repro_torch.roofline import autotune
+
+    autotune.set_active_table(None)
+    plain = [0]
+    ref_blocked = ops.itemset_counts_ref_blocked
+
+    def counted_plain(*args, **kwargs):
+        plain[0] += 1
+        return ref_blocked(*args, **kwargs)
+
+    ops.itemset_counts_ref_blocked = counted_plain
+    for cut in EXAMPLE_CUTS:
+        print(f"   cut: {cut}", flush=True)
+    argv = sys.argv
+    runs = []
+    for name, args in EXAMPLE_RUNS:
+        path = ROOT / "examples" / "torch" / f"{name}.py"
+        vpu0 = ops.KERNEL_LAUNCHES_BY_ACCUM["vpu_int32"]
+        mxu0 = ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"]
+        into0, plain0 = ops.KERNEL_LAUNCHES_INTO, plain[0]
+        label = " ".join((name,) + tuple(args))
+        print(f"   --- examples/torch/{name}.py {' '.join(args)} "
+              f"--device {dev.type}", flush=True)
+        sys.argv = [str(path), *args, "--device", dev.type]
+        tee = _Tee(sys.stdout)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t
+        sys.argv = argv
+        into = ops.KERNEL_LAUNCHES_INTO - into0
+        run = dict(example=label, wall_s=wall,
+                   k1=ops.KERNEL_LAUNCHES_BY_ACCUM["vpu_int32"] - vpu0 - into,
+                   k2=ops.KERNEL_LAUNCHES_BY_ACCUM["mxu_f32"] - mxu0,
+                   k3=into, plain=plain[0] - plain0)
+        exact = [ln for ln in tee.buf.getvalue().splitlines()
+                 if re.search(EXAMPLE_EXACT[name], ln)]
+        if not exact:
+            raise AssertionError(f"{label}: no exactness line "
+                                 f"/{EXAMPLE_EXACT[name]}/")
+        run["exact"] = exact[-1].strip()
+        if name not in EXAMPLE_HOST_ONLY and run["k1"] + run["k3"] == 0:
+            raise AssertionError(f"{label}: neither K1 nor K3 launched")
+        if run["plain"]:
+            raise AssertionError(f"{label}: {run['plain']} counts went "
+                                 "through the plain version")
+        print(f"   {label}: {wall:.3f} s wall; \"{run['exact']}\"; launches "
+              f"K1 {run['k1']}, K2 {run['k2']}, K3 {run['k3']}, plain "
+              f"{run['plain']} [{smi}]", flush=True)
+        runs.append(run)
+    ops.itemset_counts_ref_blocked = ref_blocked
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    lint = {}
+    for key, extra in (("self_test", ["--self-test"]), ("gate", [])):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.analyze", *extra],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        last = (out.stdout.strip().splitlines() or [""])[-1]
+        print(f"   repro_torch.launch.analyze {' '.join(extra)}: exit "
+              f"{out.returncode}: {last}", flush=True)
+        if out.returncode != 0:
+            raise AssertionError(f"the lint's {key} exited "
+                                 f"{out.returncode}:\n{out.stdout}"
+                                 f"{out.stderr}")
+        lint[key] = last
+    return dict(runs=runs, lint=lint,
+                k1=sum(r["k1"] for r in runs), k2=sum(r["k2"] for r in runs),
+                k3=sum(r["k3"] for r in runs))
+
+
 def main() -> int:
     # phase 17 (d) runs under torch.use_deterministic_algorithms, which
     # wants cuBLAS's fixed workspace before the first handle exists
@@ -4641,6 +4845,15 @@ def main() -> int:
     dry = _dry_run(dev, smi)
     _done(t0)
 
+    # ---- 20. the examples ---------------------------------------------------
+    t0 = _phase("20. the seven examples on the card (defaults; "
+                f"streaming_bigdata at {EXAMPLE_STREAM_ROWS} rows streamed "
+                f"and {EXAMPLE_BIG_ROWS} auto, count_server at "
+                f"{EXAMPLE_BIG_ROWS}), the lint's self-test and gate")
+    print(f"   card: {smi}", flush=True)
+    examples = _examples(dev, smi)
+    _done(t0)
+
     print(f"total seconds: {time.perf_counter() - t_all:.3f}")
     record = {"kernels": [{
         "name": "itemset_count",
@@ -4650,12 +4863,13 @@ def main() -> int:
         # the main path's run (phase 5) and the count server's (phase 14),
         # each read with the counts set to 0 just before it
         "launches": (dense_launches + serve["k1"] + rule["k1"]
-                     + rule["launcher_k1"]),
+                     + rule["launcher_k1"] + examples["k1"]),
         "launches_by_path": {"main path (phase 5)": dense_launches,
                              "count server (phase 14)": serve["k1"],
                              "rule server (phase 15)": rule["k1"],
                              "serve_counts launcher (phase 15)":
-                             rule["launcher_k1"]},
+                             rule["launcher_k1"],
+                             "examples (phase 20)": examples["k1"]},
         "max_abs_err": max_err,
         # the main path's work: one launch at each of its three geometries
         "ms": sum(p["ms"] for p in per_launch),
@@ -4710,12 +4924,13 @@ def main() -> int:
         # the streamed main path (phase 5): 8 chunks a level; the count
         # server's streamed and spilled bases (phase 14)
         "launches": (into_launches + serve["k3"] + rule["k3"]
-                     + rule["launcher_k3"]),
+                     + rule["launcher_k3"] + examples["k3"]),
         "launches_by_path": {"streamed main path (phase 5)": into_launches,
                              "count server (phase 14)": serve["k3"],
                              "rule server (phase 15)": rule["k3"],
                              "serve_counts launcher (phase 15)":
-                             rule["launcher_k3"]},
+                             rule["launcher_k3"],
+                             "examples (phase 20)": examples["k3"]},
         "max_abs_err": max_err,
         # the 8-chunk sweeps at the three geometries: kernels in the trace
         "ms": (sum(p["k3_kernels_ms"] for p in per_launch)
@@ -4736,6 +4951,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"tensor_parallel": tensor_parallel}))
     print(json.dumps({"dryrun": dry}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` imports neither ``jax`` nor any
-module of the JAX package ``repro``.
+"""The port stands alone: ``repro_torch`` and the port's examples
+(``examples/torch/*.py``) import neither ``jax`` nor any module of the JAX
+package ``repro``.
 
 The check runs in a fresh interpreter, because this test process has JAX
 loaded already (``conftest.py`` imports the JAX autotuner for every test).
@@ -17,6 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
 PY_FILES = sorted(p.relative_to(SRC).as_posix() for p in PKG.rglob("*.py"))
+EXAMPLES = sorted(p.name for p in (ROOT / "examples" / "torch").glob("*.py"))
 
 
 def _module_name(rel: str) -> str:
@@ -63,6 +65,35 @@ def test_no_jax_or_repro_import(rel):
     names = list(_imports(tree, rel))
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == [], f"{rel} imports {bad}"
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_imports_no_jax_or_repro(name):
+    path = ROOT / "examples" / "torch" / name
+    names = list(_imports(ast.parse(path.read_text(), filename=name),
+                          f"examples/torch/{name}"))
+    assert any(n.startswith("repro_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == [], f"examples/torch/{name} imports {bad}"
+
+
+def test_examples_load_without_jax_or_repro():
+    """Each example's module body, run in a fresh interpreter (its
+    ``main`` is not called), leaves ``jax`` and ``repro`` out."""
+    assert len(EXAMPLES) == 7
+    paths = [str(ROOT / "examples" / "torch" / n) for n in EXAMPLES]
+    code = (
+        "import json, runpy, sys\n"
+        f"for p in {paths!r}:\n"
+        "    runpy.run_path(p)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_imports_no_jax():

@@ -6,10 +6,12 @@ re-run on the port, plus side-by-side runs of both packages' watchers on the
 same acquisition sequences and cycle searches.  The live half instruments
 the port's async count servers (on the CPU) and a rule server over one,
 races threads against appends, and asserts no order cycle and that every
-edge observed live is in the static graph that the JAX package's
-``ConcurrencyChecker`` derives from ``src/repro_torch`` (tests may import
-both packages; the port imports neither JAX nor the JAX package).  The
-static graph of the port is itself acyclic and has the reference's edges.
+edge observed live is in the static graph that the port's own
+``ConcurrencyChecker`` (``repro_torch.analysis``) derives from
+``src/repro_torch``.  The static graph of the port is itself acyclic, has
+the reference's edges, and equals the graph the JAX package's checker
+derives from the same sources (tests may import both packages; the port
+imports neither JAX nor the JAX package).
 
 The inversion test runs its two threads SEQUENTIALLY (thread 1 fully
 releases before thread 2 starts): the watcher flags the ordering hazard
@@ -23,7 +25,7 @@ import numpy as np
 import pytest
 
 import repro.obs.lockwatch as jlw
-from repro.analysis import ConcurrencyChecker, analyze_paths
+from repro_torch.analysis import ConcurrencyChecker, analyze_paths
 from repro_torch import obs
 from repro_torch.obs import (LockOrderError, LockOrderWatcher, WatchedLock,
                              instrument_server)
@@ -196,6 +198,20 @@ def test_static_graph_of_the_port_is_acyclic_and_matches_jax():
     assert set(edges) == set(jax_edges)
     assert ("CountServer._lock", "AsyncFlusher._lat_lock") in edges
     assert ("VersionedDB._store_lock", "AsyncCompactor._mu") in edges
+
+
+def test_port_lock_graph_equals_the_reference_checkers():
+    """The port's ``ConcurrencyChecker`` and the JAX package's give the same
+    edges, witnesses included, over ``src/repro_torch``."""
+    from repro.analysis import ConcurrencyChecker as JaxChecker
+    from repro.analysis import analyze_paths as jax_analyze_paths
+
+    ref = JaxChecker()
+    ref_findings, _ = jax_analyze_paths([str(SRC)], [ref], root=str(SRC))
+    edges, findings = _static(SRC)
+    assert edges == ref.lock_edges
+    assert [f.fingerprint for f in findings] == \
+        [f.fingerprint for f in ref_findings] == []
 
 
 # -- the real cross-check: live serving traffic vs the static graph ----------
