@@ -28,6 +28,7 @@ from .._device import DeviceLike, resolve_device
 from ..core.mra import Rule
 from ..core.tis import TISTree
 from ..kernels.itemset_count import itemset_counts
+from ..obs import TRACER
 from .encode import (ItemVocab, class_weights, dedup_rows, encode_bitmap,
                      encode_targets, project_columns)
 from .stream import (DEFAULT_STREAM_THRESHOLD_BYTES, StreamingDB, _host,
@@ -103,15 +104,21 @@ class DenseDB:
         dev = resolve_device(device)
         if vocab is None:
             vocab = ItemVocab.from_transactions(transactions, min_count=min_item_count)
-        bits = encode_bitmap(transactions, vocab)
-        if classes is None:
-            w = np.ones((len(transactions), 1), np.int32)
-            n_classes = 1
-        else:
-            n_classes = n_classes or (int(max(classes)) + 1)
-            w = class_weights(classes, n_classes)
-        ub, uw = dedup_rows(bits, w)
-        return DenseDB(vocab=vocab, bits=_to(ub, dev), weights=_to(uw, dev),
+        with TRACER.span("encode.bitmap"):
+            bits = encode_bitmap(transactions, vocab)
+            if classes is None:
+                w = np.ones((len(transactions), 1), np.int32)
+                n_classes = 1
+            else:
+                n_classes = n_classes or (int(max(classes)) + 1)
+                w = class_weights(classes, n_classes)
+        with TRACER.span("encode.dedup") as sp:
+            ub, uw = dedup_rows(bits, w)
+            sp.set("rows_in", bits.shape[0])
+            sp.set("rows_out", ub.shape[0])
+        with TRACER.span("encode.upload"):
+            db_bits, db_weights = _to(ub, dev), _to(uw, dev)
+        return DenseDB(vocab=vocab, bits=db_bits, weights=db_weights,
                        n_rows=len(transactions), n_classes=n_classes)
 
     @staticmethod
@@ -271,28 +278,38 @@ def mra_encode(
     """Passes 1 and 2 of the MRA: keep the items frequent in the rare class
     (ordered by descending total count) and encode the DB once with two
     weight columns (C0, C1).  Returns ``(db, items_kept, n_rare)``: a
-    ``StreamingDB`` when the engine streams, else a ``DenseDB``."""
-    dev = resolve_device(device)
-    db_list = [list(t) for t in transactions]
-    n_db = len(db_list)
-    c_star = min_support * n_db
+    ``StreamingDB`` when the engine streams, else a ``DenseDB``.  The
+    whole encode, freeing its row copy included, is the span
+    ``mra.encode``."""
+    with TRACER.span("mra.encode"):
+        return _mra_encode(transactions, classes, target_class, min_support,
+                           streaming, chunk_rows, checkpoint, device)
 
+
+def _mra_encode(transactions, classes, target_class, min_support, streaming,
+                chunk_rows, checkpoint, device):
+    dev = resolve_device(device)
     # ---- pass 1: I' = items frequent in the rare class ----------------------
-    c1: Dict[Item, int] = {}
-    c_all: Dict[Item, int] = {}
-    n_rare = 0
-    y01 = []
-    for t, y in zip(db_list, classes):
-        rare = int(y == target_class)
-        y01.append(rare)
-        n_rare += rare
-        for a in set(t):
-            c_all[a] = c_all.get(a, 0) + 1
-            if rare:
-                c1[a] = c1.get(a, 0) + 1
-    items_kept = [a for a, c in c1.items() if c >= c_star]
-    items_kept.sort(key=lambda a: (-c_all[a], repr(a)))  # shared global order
-    vocab = ItemVocab(tuple(items_kept))
+    with TRACER.span("mra.scan") as sp:
+        db_list = [list(t) for t in transactions]
+        n_db = len(db_list)
+        c_star = min_support * n_db
+        c1: Dict[Item, int] = {}
+        c_all: Dict[Item, int] = {}
+        n_rare = 0
+        y01 = []
+        for t, y in zip(db_list, classes):
+            rare = int(y == target_class)
+            y01.append(rare)
+            n_rare += rare
+            for a in set(t):
+                c_all[a] = c_all.get(a, 0) + 1
+                if rare:
+                    c1[a] = c1.get(a, 0) + 1
+        items_kept = [a for a, c in c1.items() if c >= c_star]
+        items_kept.sort(key=lambda a: (-c_all[a], repr(a)))  # global order
+        vocab = ItemVocab(tuple(items_kept))
+        sp.set("items_kept", len(items_kept))
 
     # ---- pass 2: one encoded DB, two weight columns (C0, C1) ---------------
     # engine selection mirrors _resolve_streaming: explicit flag wins, then
@@ -334,8 +351,18 @@ def minority_report_dense(
     ``streaming=True`` (or auto, by encoded size) runs both the antecedent
     mine and the fused two-class pass as chunked out-of-core sweeps — the
     rule list is identical to the single-pass engine.  ``device`` is where
-    the counts run (default: the card).
+    the counts run (default: the card).  The whole job is the span
+    ``mra.job``.
     """
+    with TRACER.span("mra.job"):
+        return _minority_report_dense(
+            transactions, classes, target_class, min_support, min_confidence,
+            use_kernel, streaming, chunk_rows, checkpoint, device)
+
+
+def _minority_report_dense(transactions, classes, target_class, min_support,
+                           min_confidence, use_kernel, streaming, chunk_rows,
+                           checkpoint, device) -> DenseMRAResult:
     db, items_kept, n_rare = mra_encode(
         transactions, classes, target_class=target_class,
         min_support=min_support, streaming=streaming, chunk_rows=chunk_rows,
@@ -366,18 +393,21 @@ def minority_report_dense(
         return DenseMRAResult([], items_kept, n_db, n_rare, launches, engine)
 
     # ---- fused counting of (C0, C1) for all antecedents ----------------------
-    itemsets = sorted(freq1.keys())
-    masks = encode_targets(itemsets, vocab)
-    counts = _count_block(db, masks, use_kernel=use_kernel, streaming=stream,
-                          chunk_rows=chunk_rows)
+    with TRACER.span("mra.fused", {"n_antecedents": len(freq1)}):
+        itemsets = sorted(freq1.keys())
+        masks = encode_targets(itemsets, vocab)
+        counts = _count_block(db, masks, use_kernel=use_kernel,
+                              streaming=stream, chunk_rows=chunk_rows)
     launches += db.n_chunks if stream else 1
 
-    rules: List[Rule] = []
-    for itemset, row in zip(itemsets, counts):
-        c0_, c1_ = int(row[0]), int(row[1])
-        _crosscheck_fused(itemset, c1_, freq1[itemset], engine)
-        conf = c1_ / (c1_ + c0_) if (c0_ + c1_) else 0.0
-        if conf >= min_confidence:
-            rules.append(Rule(itemset, target_class, c1_ / n_db, conf, c1_, c0_))
-    rules.sort(key=lambda r: (-r.confidence, -r.support, r.antecedent))
+    with TRACER.span("mra.rules"):
+        rules: List[Rule] = []
+        for itemset, row in zip(itemsets, counts):
+            c0_, c1_ = int(row[0]), int(row[1])
+            _crosscheck_fused(itemset, c1_, freq1[itemset], engine)
+            conf = c1_ / (c1_ + c0_) if (c0_ + c1_) else 0.0
+            if conf >= min_confidence:
+                rules.append(Rule(itemset, target_class, c1_ / n_db, conf,
+                                  c1_, c0_))
+        rules.sort(key=lambda r: (-r.confidence, -r.support, r.antecedent))
     return DenseMRAResult(rules, items_kept, n_db, n_rare, launches, engine)

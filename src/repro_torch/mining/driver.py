@@ -72,7 +72,19 @@ def mine_frequent(
     the level's sweep), ``on_level(level, n_candidates, n_frequent)``
     after each level's absorb.  ``level1_shortcut`` controls the backend's
     ``item_counts`` fast path for singles (None = use it when available).
+    The whole loop is the span ``mine.driver``.
     """
+    with TRACER.span("mine.driver", {"class_column": class_column}):
+        return _mine_frequent(
+            backend, min_count, class_column=class_column, max_len=max_len,
+            checkpoint=checkpoint, on_level=on_level, on_chunk=on_chunk,
+            level1_shortcut=level1_shortcut)
+
+
+def _mine_frequent(backend: CountBackend, min_count: float, *,
+                   class_column: Optional[int], max_len: int, checkpoint,
+                   on_level, on_chunk,
+                   level1_shortcut: Optional[bool]) -> Dict[Key, int]:
     out: Dict[Key, int] = {}
     partial: Optional[dict] = None
     level = 0
@@ -93,9 +105,9 @@ def mine_frequent(
 
     csig = backend.chunk_signature()
 
-    def _count_level(itemsets: List[Key], lvl: int) -> np.ndarray:
+    def _count_level(itemsets: List[Key], masks: np.ndarray,
+                     lvl: int) -> np.ndarray:
         nonlocal partial
-        masks = encode_targets(itemsets, backend.vocab)
         # JSON-stable level identity; only materialized when durability or
         # progress hooks are in play (the hot path skips it)
         wire = ([list(t) for t in itemsets]
@@ -149,13 +161,15 @@ def mine_frequent(
         singles: List[Key] = [(a,) for a in backend.vocab.items]
         frequent: set = set()
         if singles:
-            shortcut = (backend.item_counts()
-                        if level1_shortcut is not False else None)
-            if level1_shortcut is True and shortcut is None:
-                raise ValueError("backend has no level-1 item_counts shortcut")
-            rows = shortcut if shortcut is not None \
-                else _count_level(singles, 1)
-            frequent = _absorb(singles, rows)
+            with TRACER.span("mine.singles", {"n_candidates": len(singles)}):
+                shortcut = (backend.item_counts()
+                            if level1_shortcut is not False else None)
+                if level1_shortcut is True and shortcut is None:
+                    raise ValueError(
+                        "backend has no level-1 item_counts shortcut")
+                rows = shortcut if shortcut is not None else _count_level(
+                    singles, encode_targets(singles, backend.vocab), 1)
+                frequent = _absorb(singles, rows)
         level = 1
         _M_LEVELS.inc()
         _M_CANDIDATES.inc(len(singles))
@@ -170,11 +184,15 @@ def mine_frequent(
     from ..core.apriori import apriori_gen
 
     while frequent and (max_len == 0 or level < max_len):
-        itemsets = canonical_itemsets(apriori_gen(frequent, level))
+        with TRACER.span("mine.candidates", {"level": level + 1}) as sp:
+            itemsets = canonical_itemsets(apriori_gen(frequent, level))
+            masks = encode_targets(itemsets, backend.vocab)
+            sp.set("n_candidates", len(itemsets))
         if not itemsets:
             break
-        rows = _count_level(itemsets, level + 1)
-        frequent = _absorb(itemsets, rows)
+        rows = _count_level(itemsets, masks, level + 1)
+        with TRACER.span("mine.absorb", {"level": level + 1}):
+            frequent = _absorb(itemsets, rows)
         level += 1
         _M_LEVELS.inc()
         _M_CANDIDATES.inc(len(itemsets))

@@ -15,7 +15,9 @@ State model:
   * ``REGISTRY`` (metrics) is ENABLED by default: counters/histograms are
     thread-confined dict bumps, cheap enough for the hot path.
   * ``TRACER`` (spans) is DISABLED by default: ring-buffer traces are an
-    opt-in debugging surface (``--trace`` in the launchers).
+    opt-in debugging surface (``--trace`` in the launchers).  While it is
+    on it also times Python's collector (``py.gc`` spans from a
+    ``gc.callbacks`` hook that switching it off, or ``reset()``, removes).
   * ``KERNEL_TIMING`` gates the per-launch device-time measurement in
     ``kernels/itemset_count/ops.py``: it brackets each launch with CUDA
     events and reads them later without waiting, so a pipelined launch

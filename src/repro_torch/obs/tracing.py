@@ -22,9 +22,16 @@ Tracing is OFF by default (the ring buffer and per-span objects are real
 allocations); ``tracer.enabled = True`` (or ``repro_torch.obs.configure``) turns
 it on.  When disabled, ``span()`` returns a shared no-op singleton without
 allocating — the same zero-overhead contract as the metrics registry.
+
+While a tracer is enabled it also times Python's collector: a
+``gc.callbacks`` hook, installed when ``enabled`` turns true and removed when
+it turns false, files each collection as a ``py.gc`` span of the thread that
+ran it.  :meth:`Tracer.record` files a span measured elsewhere (a request's
+queue wait, stamped at submit and closed at the drain).
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import os
 import threading
@@ -100,11 +107,30 @@ class Tracer:
 
     def __init__(self, enabled: bool = False,
                  ring_spans: int = DEFAULT_RING_SPANS):
-        self.enabled = enabled
         self._ring: "deque[Span]" = deque(maxlen=ring_spans)
         self._ids = itertools.count(1)
         self._local = threading.local()
         self._epoch = time.perf_counter()
+        # one collection runs at a time (the collector holds the interpreter
+        # lock throughout), so one start stamp serves every thread
+        self._gc_t0: Optional[float] = None
+        self._enabled = False
+        self.enabled = enabled
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    @enabled.setter
+    def enabled(self, on: bool) -> None:
+        """Switch tracing, and with it the ``py.gc`` hook, on or off."""
+        self._enabled = bool(on)
+        installed = self._on_gc in gc.callbacks   # bound methods compare equal
+        if on and not installed:
+            gc.callbacks.append(self._on_gc)
+        elif not on and installed:
+            gc.callbacks.remove(self._on_gc)
+            self._gc_t0 = None
 
     def _stack(self) -> List[Span]:
         stack = getattr(self._local, "stack", None)
@@ -116,20 +142,40 @@ class Tracer:
         """Open a span (use as a context manager).  ``attrs`` is an optional
         dict — passed positionally, not **kwargs, so a disabled tracer costs
         one call and no allocation."""
-        if not self.enabled:
+        if not self._enabled:
             return NOOP_SPAN
         return Span(self, name, attrs)
 
     def instant(self, name: str, attrs: Optional[dict] = None) -> None:
         """Zero-duration marker (e.g. one submit): a span with t0 == t1."""
-        if not self.enabled:
+        if self._enabled:
+            now = time.perf_counter()
+            self.record(name, now, now, attrs)
+
+    def record(self, name: str, t0: float, t1: float,
+               attrs: Optional[dict] = None, *, nest: bool = True) -> None:
+        """File a finished span over ``[t0, t1]`` (``time.perf_counter``
+        stamps taken by the caller).  ``nest`` makes it a child of this
+        thread's innermost open span; a span that began on another thread
+        (a request's queue wait) passes ``nest=False``."""
+        if not self._enabled:
             return
         s = Span(self, name, attrs)
-        stack = self._stack()
-        if stack:
-            s.parent_id = stack[-1].span_id
-        s.t0 = s.t1 = time.perf_counter()
+        if nest:
+            stack = self._stack()
+            if stack:
+                s.parent_id = stack[-1].span_id
+        s.t0, s.t1 = t0, t1
         self._ring.append(s)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            t0, self._gc_t0 = self._gc_t0, None
+            self.record("py.gc", t0, time.perf_counter(),
+                        {"generation": info["generation"],
+                         "collected": info["collected"]})
 
     def reset(self) -> None:
         self._ring.clear()

@@ -43,7 +43,7 @@ from typing import Dict, Hashable, Optional, Sequence
 
 import numpy as np
 
-from ..obs import REGISTRY, nearest_rank
+from ..obs import REGISTRY, TRACER, nearest_rank
 
 Item = Hashable
 
@@ -134,10 +134,15 @@ class AsyncFlusher:
                itemsets: Sequence[Sequence[Item]]) -> CountFuture:
         """Queue one request; returns its future.  Wakes the trigger thread
         when this submit starts the deadline clock or fills the batch."""
+        t_enter = time.perf_counter()
         with self._server._lock:
+            t_held = time.perf_counter() if TRACER.enabled else None
             if self._closed:
                 raise RuntimeError("AsyncFlusher is closed")
-            ticket = self._server.batcher.submit(client_id, itemsets)
+            ticket = self._server.batcher.submit(client_id, itemsets, t_enter)
+            if t_held is not None:
+                TRACER.record("serve.lock_wait", t_enter, t_held,
+                              {"ticket": ticket})
             fut = CountFuture(ticket)
             self._futures[ticket] = fut
             first = self._oldest is None
@@ -229,7 +234,9 @@ class AsyncFlusher:
                 oldest = self._oldest
             now = time.monotonic()
             if now < self._backoff_until:
-                self._wake.wait(self._backoff_until - now)
+                with TRACER.span("serve.batch_wait") as sp:
+                    sp.set("ended", "backoff")
+                    self._wake.wait(self._backoff_until - now)
                 self._wake.clear()
                 continue
             if pending >= self.min_batch:
@@ -241,7 +248,9 @@ class AsyncFlusher:
                 continue
             timeout = (None if oldest is None
                        else max(1e-4, oldest + self.max_delay_s - now))
-            self._wake.wait(timeout)
+            with TRACER.span("serve.batch_wait") as sp:
+                woken = self._wake.wait(timeout)
+                sp.set("ended", "woken" if woken else "timeout")
             self._wake.clear()
 
     # -- shutdown -------------------------------------------------------------

@@ -37,6 +37,9 @@ Key = Tuple[Item, ...]
 _M_REQUESTS = REGISTRY.counter("serve_requests_total")
 _M_QUERIES = REGISTRY.counter("serve_queries_total")
 _M_DEDUPED = REGISTRY.counter("serve_deduped_queries_total")
+# A request's wait from the entry of the submit call, before the server's
+# lock is taken, to the drain: it includes the time the submit waited behind
+# an in-flight flush that held the lock.
 _H_QUEUE_WAIT = REGISTRY.histogram("serve_queue_wait_ms")
 
 
@@ -49,7 +52,8 @@ def canonical_itemset(itemset: Sequence[Item]) -> Key:
 @dataclass
 class QueryRequest:
     """One client's submitted query list (keys already canonical).
-    ``t_submit`` (perf_counter at submit) feeds the queue-wait histogram."""
+    ``t_submit`` (perf_counter at the entry of the submit call, before the
+    server's lock) feeds the queue-wait histogram and ``serve.queued``."""
     request_id: int
     client_id: str
     keys: List[Key]
@@ -90,13 +94,18 @@ class MicroBatcher:
     def pending(self) -> int:
         return len(self._pending)
 
-    def submit(self, client_id: str, itemsets: Sequence[Sequence[Item]]) -> int:
-        """Queue one request; returns its ticket (the ``flush()`` result key)."""
+    def submit(self, client_id: str, itemsets: Sequence[Sequence[Item]],
+               t_submit: Optional[float] = None) -> int:
+        """Queue one request; returns its ticket (the ``flush()`` result
+        key).  ``t_submit`` is when the caller's submit call was entered
+        (default: now), so that the queue wait counts the wait for the
+        server's lock."""
         rid = self._next_id
         self._next_id += 1
         keys = [canonical_itemset(s) for s in itemsets]
-        self._pending.append(QueryRequest(rid, client_id, keys,
-                                          time.perf_counter()))
+        self._pending.append(QueryRequest(
+            rid, client_id, keys,
+            time.perf_counter() if t_submit is None else t_submit))
         self.n_requests += 1
         self.n_queries += len(keys)
         # instant (not a span): the queue wait is the flush's story, and
@@ -130,6 +139,11 @@ class MicroBatcher:
             _M_DEDUPED.inc(dups)
         _H_QUEUE_WAIT.observe_many(
             [(now - req.t_submit) * 1e3 for req in self._pending])
+        if TRACER.enabled:
+            # begun on the submitting thread: filed unnested, linked by ticket
+            for req in self._pending:
+                TRACER.record("serve.queued", req.t_submit, now,
+                              {"ticket": req.request_id}, nest=False)
         plan = BatchPlan(unique_keys=unique, rows=rows,
                          requests=self._pending)
         self._pending = []

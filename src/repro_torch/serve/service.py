@@ -196,8 +196,14 @@ class CountServer:
     def submit(self, client_id: str,
                itemsets: Sequence[Sequence[Item]]) -> int:
         """Queue one client request; returns the ticket ``flush()`` keys on."""
+        t_enter = time.perf_counter()
         with self._lock:
-            return self.batcher.submit(client_id, itemsets)
+            t_held = time.perf_counter() if TRACER.enabled else None
+            ticket = self.batcher.submit(client_id, itemsets, t_enter)
+            if t_held is not None:
+                TRACER.record("serve.lock_wait", t_enter, t_held,
+                              {"ticket": ticket})
+            return ticket
 
     def submit_async(self, client_id: str,
                      itemsets: Sequence[Sequence[Item]]) -> CountFuture:
@@ -257,7 +263,10 @@ class CountServer:
                     REGISTRY.counter("serve_flushes_total",
                                      trigger="sync").inc()
             if self._flusher is not None:
-                self._flusher._dispatch(out, started=started)
+                # serve.dispatch follows serve.flush, which times the
+                # flush alone
+                with TRACER.span("serve.dispatch", {"n_tickets": len(out)}):
+                    self._flusher._dispatch(out, started=started)
                 if manual:
                     out.update(self._flusher.claim_unclaimed())
             return out
@@ -268,6 +277,9 @@ class CountServer:
             sp.set("n_requests", len(plan.requests))
             sp.set("n_queries", plan.n_queries)
             sp.set("n_unique", len(plan.unique_keys))
+            if plan.requests:
+                sp.set("first_ticket", plan.requests[0].request_id)
+                sp.set("last_ticket", plan.requests[-1].request_id)
         if not plan.requests:
             return {}
         try:
@@ -296,19 +308,21 @@ class CountServer:
         version = self.store.version
         resolved: Dict[Key, np.ndarray] = {}
         missing: List[Key] = []
-        for key in keys:
-            hit = self.cache.get(key, version) if self.cache is not None \
-                else None
-            if hit is not None:
-                resolved[key] = hit
-            else:
-                missing.append(key)
+        with TRACER.span("serve.cache_lookup"):
+            for key in keys:
+                hit = self.cache.get(key, version) if self.cache is not None \
+                    else None
+                if hit is not None:
+                    resolved[key] = hit
+                else:
+                    missing.append(key)
         if missing:
             with TRACER.span("serve.count",
                              {"n_masks": len(missing), "version": version,
                               "cache_hits": len(keys) - len(missing)}):
-                masks, known = build_masks(missing, self.store.vocab,
-                                           self.batcher.block_k)
+                with TRACER.span("serve.masks"):
+                    masks, known = build_masks(missing, self.store.vocab,
+                                               self.batcher.block_k)
                 rows = self.store.counts_masks(
                     masks, block_k=self.batcher.block_k)[:len(missing)]
                 rows[~known] = 0     # unknown-item targets count exactly 0
