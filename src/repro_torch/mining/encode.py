@@ -18,8 +18,11 @@ produce are the device inputs of the counting kernel.
 """
 from __future__ import annotations
 
+from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, Hashable, Iterable, List, Optional, Sequence, Tuple
+from itertools import chain
+from typing import (Dict, Hashable, Iterable, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 
@@ -69,20 +72,60 @@ class ItemVocab:
         return ItemVocab(tuple(items))
 
 
+@dataclass(frozen=True)
+class FlatRows:
+    """Rows walked once into flat arrays: occurrence ``k`` is the item
+    ``items[ids[k]]`` in row ``rows[k]``.  ``encode_bitmap`` (and so
+    ``DenseDB.encode`` / ``StreamingDB.encode``, given a vocab) takes one in
+    place of the rows and walks nothing again."""
+
+    ids: np.ndarray              # (T,) dense item id of each occurrence
+    rows: np.ndarray             # (T,) int64 row of each occurrence
+    items: Tuple[Item, ...]      # id -> item: the first object seen of each
+    n_rows: int
+    source: Sequence[Iterable[Item]]  # the rows as walked
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+
+def flatten_rows(transactions: Iterable[Iterable[Item]]) -> FlatRows:
+    """One walk over the rows: each item to a dense id (first seen, first
+    numbered) into an int32 array, all in C.  Rows without a length
+    (generators) are read into tuples first."""
+    rows = transactions if isinstance(transactions, (list, tuple)) \
+        else list(transactions)
+    try:
+        lengths = np.fromiter(map(len, rows), np.int64, len(rows))
+    except TypeError:
+        rows = [t if hasattr(t, "__len__") else tuple(t) for t in rows]
+        lengths = np.fromiter(map(len, rows), np.int64, len(rows))
+    index: Dict[Item, int] = defaultdict()
+    index.default_factory = index.__len__    # an unseen item: the next id
+    ids = np.fromiter(map(index.__getitem__, chain.from_iterable(rows)),
+                      np.int32, int(lengths.sum()))
+    return FlatRows(ids=ids, rows=np.repeat(np.arange(len(rows)), lengths),
+                    items=tuple(index), n_rows=len(rows), source=rows)
+
+
 def encode_bitmap(
-    transactions: Sequence[Sequence[Item]],
+    transactions: Union[Iterable[Iterable[Item]], FlatRows],
     vocab: ItemVocab,
 ) -> np.ndarray:
-    """-> (N, W) uint32 packed bitmap (items outside vocab are dropped)."""
-    n = len(transactions)
-    w = vocab.n_words
-    out = np.zeros((n, w), dtype=np.uint32)
+    """-> (N, W) uint32 packed bitmap (items outside vocab are dropped).
+    An item repeated in a row sets its bit once."""
+    flat = transactions if isinstance(transactions, FlatRows) \
+        else flatten_rows(transactions)
     idx = vocab._index()
-    for i, t in enumerate(transactions):
-        for a in set(t):
-            c = idx.get(a)
-            if c is not None:
-                out[i, c >> 5] |= np.uint32(1) << np.uint32(c & 31)
+    lut = np.fromiter((idx.get(a, -1) for a in flat.items), np.int64,
+                      len(flat.items))
+    cols = lut[flat.ids]
+    hit = cols >= 0
+    cols = cols[hit]
+    w = vocab.n_words
+    out = np.zeros((flat.n_rows, w), dtype=np.uint32)
+    bit = np.left_shift(np.uint32(1), (cols & 31).astype(np.uint32))
+    np.bitwise_or.at(out.reshape(-1), flat.rows[hit] * w + (cols >> 5), bit)
     return out
 
 

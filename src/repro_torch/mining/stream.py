@@ -29,7 +29,7 @@ the ragged last chunk itself, so nothing is zero-padded.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,8 +37,8 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..kernels.itemset_count import itemset_counts_into
 from ..kernels.itemset_count.ref import check_inputs
-from .encode import (ItemVocab, class_weights, dedup_rows, encode_bitmap,
-                     project_columns)
+from .encode import (FlatRows, ItemVocab, class_weights, dedup_rows,
+                     encode_bitmap, project_columns)
 from .plan import choose_chunk_rows, stream_chunks
 
 Item = Hashable
@@ -199,7 +199,7 @@ class StreamingDB:
 
     @staticmethod
     def encode(
-        transactions: Sequence[Sequence[Item]],
+        transactions: Union[Sequence[Sequence[Item]], FlatRows],
         classes: Optional[Sequence[int]] = None,
         n_classes: Optional[int] = None,
         vocab: Optional[ItemVocab] = None,
@@ -208,6 +208,8 @@ class StreamingDB:
         *,
         device: DeviceLike = None,
     ) -> "StreamingDB":
+        """``transactions`` may be rows already walked (``FlatRows``), when
+        ``vocab`` is given."""
         dev = resolve_device(device)
         if vocab is None:
             vocab = ItemVocab.from_transactions(transactions,

@@ -1,5 +1,6 @@
 """Runs an example of either package in this process and masks what a run
-cannot repeat: wall times (numbers followed by ``s``, ``ms`` or ``us``),
+cannot repeat: wall times (numbers followed by ``s``, ``ms`` or ``us``,
+with the spaces that pad them),
 the speedups computed from them (``(3.2x)``) and launch counts.  The one
 line each package names its own kernel in is mapped to the port's, and the
 chooser's measured density, which the port samples from other rows, is
@@ -19,7 +20,9 @@ NAMES = ("quickstart", "incremental_mining", "corpus_pattern_mining",
          "minority_report_census", "count_server", "rule_server",
          "streaming_bigdata")
 
-_TIME = re.compile(r"\d+(?:\.\d+)?\s*(?:s|ms|us)\b")
+# a time with its field's padding: a one-digit and a two-digit time in one
+# fixed-width field differ in their leading spaces
+_TIME = re.compile(r" *\d+(?:\.\d+)?\s*(?:s|ms|us)\b")
 _RATIO = re.compile(r"\(\s*\d+(?:\.\d+)?x")
 _LAUNCHES = re.compile(r"\d+ (kernel )?launches")
 _TELEMETRY_LAUNCHES = re.compile(r"\d+ kernel launches(, )?")

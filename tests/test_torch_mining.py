@@ -314,6 +314,106 @@ def test_mra_encode_matches_jax_encoding(name):
     assert sdb.bits.tobytes() == np.asarray(jdb.bits).tobytes()
 
 
+def _edge_table(case):
+    """-> (make_rows, y, n_kept): ``make_rows()`` gives a fresh copy of the
+    table as the case gives it (generators are read once); ``n_kept`` is the
+    size of the kept vocabulary where the case fixes it.  Row ``i`` is rare
+    where ``i % 6 == 5``; every kept item is in some rare row, and the five
+    items past ``k`` only in the other rows, outside the kept vocabulary."""
+    n, k = 240, 40
+    if case.startswith("vocab_"):
+        k = int(case.split("_")[1])
+    rng = np.random.default_rng(k)
+    y = np.array([int(i % 6 == 5) for i in range(n)])
+    base = []
+    for i in range(n):
+        if y[i]:
+            r = i // 6
+            row = [j for j in range(k) if j % 40 == r or rng.random() < 0.1]
+        else:
+            row = [j for j in range(k + 5) if rng.random() < 0.1]
+        base.append([int(j) for j in rng.permutation(row)])
+    obj = {"strings": lambda j: f"s{j}", "tuples": lambda j: ("t", j % 3, j)}
+    if case in obj:
+        base = [[obj[case](j) for j in t] for t in base]
+    elif case == "repeats":
+        base = [t + t[:1] + t[-1:] if i % 3 else t + t
+                for i, t in enumerate(base)]
+    elif case == "empty_rows":
+        base = [[] if i % 4 == 0 else t for i, t in enumerate(base)]
+    elif case == "outside_vocab":
+        base = [t if y[i] or i % 3 else [k + j for j in range(i % 5 + 1)]
+                for i, t in enumerate(base)]
+    elif case == "equal_hashables":
+        # 1 and 0 in several types, the first row not rare: the kept object
+        # is the one first seen in a rare-class row
+        ones, zeros = [1, 1.0, True, np.int64(1)], [0, 0.0, False]
+        base = [[ones[int(rng.integers(4))] if a == 1 else
+                 zeros[int(rng.integers(3))] if a == 0 else a for a in t]
+                for t in base]
+        base[0] = [True, 0.0] + base[0]
+        base[5] = [np.int64(1), 1.0, False] + base[5]
+    if case == "generator_rows":
+        return (lambda: [(a for a in t) for t in base]), y, k
+    if case == "generator_table":
+        return (lambda: (list(t) for t in base)), y, k
+    if case == "array_rows":
+        return (lambda: [np.array(t, dtype=np.int64) for t in base]), y, k
+    return (lambda: [list(t) for t in base]), y, k
+
+
+_EDGE_CASES = ["repeats", "empty_rows", "outside_vocab", "vocab_31",
+               "vocab_32", "vocab_33", "vocab_64", "vocab_65", "ints",
+               "strings", "tuples", "equal_hashables", "generator_rows",
+               "generator_table", "array_rows"]
+
+
+def _typed(items):
+    return [(type(a), repr(a)) for a in items]
+
+
+@pytest.mark.parametrize("engine", ["dense", "streaming"])
+@pytest.mark.parametrize("case", _EDGE_CASES)
+def test_flat_encode_matches_jax_on_edge_inputs(case, engine, monkeypatch):
+    """The one walk over the rows (``flatten_rows``) feeding both MRA passes
+    gives the JAX package's kept items (order and objects), rare count,
+    bits and weights, and ``encode_bitmap`` its bytes, on repeats within a
+    row, empty rows, rows of out-of-vocabulary items, word edges of the
+    vocabulary, item types, equal hashables of several types, and rows as
+    generators and numpy arrays."""
+    make_rows, y, k = _edge_table(case)
+    min_support = 0.5 / len(y)
+    # the JAX package's passes 1 and 2 alone: no antecedent mine
+    monkeypatch.setattr("repro.mining.dense.dense_mine_frequent",
+                        lambda *a, **kw: {})
+    want = jm.minority_report_dense(make_rows(), y, min_support=min_support,
+                                    min_confidence=0.5, streaming=False)
+    opts = ({"streaming": False} if engine == "dense"
+            else {"chunk_rows": 128})
+    db, items_kept, n_rare = tm.mra_encode(make_rows(), y,
+                                           min_support=min_support,
+                                           device=CPU, **opts)
+    assert _typed(items_kept) == _typed(want.items_kept)
+    assert n_rare == want.n_rare == int(y.sum())
+    if case.startswith("vocab_"):
+        assert len(items_kept) == k
+    vocab = jm.ItemVocab(tuple(want.items_kept))
+    jdb = jm.DenseDB.encode(list(make_rows()), classes=y, n_classes=2,
+                            vocab=vocab)
+    if engine == "dense":
+        assert isinstance(db, tm.DenseDB)
+        bits, weights = db.bits.numpy(), db.weights.numpy()
+    else:
+        assert isinstance(db, tm.StreamingDB) and db.chunk_rows == 128
+        bits, weights = db.bits, db.weights
+    assert bits.tobytes() == np.asarray(jdb.bits).tobytes()
+    assert weights.tobytes() == np.asarray(jdb.weights).tobytes()
+    assert db.n_rows == len(y)
+    got = tm.encode_bitmap(make_rows(), tm.ItemVocab(tuple(items_kept)))
+    jbits = jm.encode_bitmap(list(make_rows()), vocab)
+    assert got.dtype == jbits.dtype and got.tobytes() == jbits.tobytes()
+
+
 _GEN_ITEMS = {"ints": list(range(14)),
               "strings": [f"i{j}" for j in range(14)],
               "mixed": [1, "1", 2, "b", 3.5, 10, "10", (1, 2), "a", 0]}

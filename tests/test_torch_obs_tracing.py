@@ -64,6 +64,10 @@ _MRA_TREE = {
 
 def test_minority_report_job_gives_the_span_tree(table):
     tx, y = table
+    # every seventh non-empty row repeats its first item: set semantics
+    tx = [t + t[:1] if i % 7 == 0 and t else t for i, t in enumerate(tx)]
+    planted = sum(1 for i, t in enumerate(table[0]) if i % 7 == 0 and t)
+    assert planted > 0
     obs.configure(tracing=True)
     res = minority_report_dense(tx, y, min_support=0.01,
                                 min_confidence=0.05, device="cpu")
@@ -86,6 +90,11 @@ def test_minority_report_job_gives_the_span_tree(table):
     assert 0 < dedup.attrs["rows_out"] <= len(tx)
     (scan,) = named["mra.scan"]
     assert scan.attrs["items_kept"] == len(res.items_kept)
+    assert scan.attrs["items_in"] == sum(map(len, tx))
+    assert scan.attrs["repeats_dropped"] == planted
+    (encode,) = named["mra.encode"]
+    assert [s.name for s in spans if s.parent_id == encode.span_id] == [
+        "mra.scan", "encode.bitmap", "encode.dedup", "encode.upload"]
     levels = [(s.attrs["level"], s.attrs["n_candidates"])
               for s in named["mine.candidates"]]
     assert [lv for lv, _ in levels] == list(range(2, 2 + len(levels)))
