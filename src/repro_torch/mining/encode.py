@@ -154,19 +154,33 @@ def dedup_rows(
     """FP-compression analogue: collapse identical rows, summing weights.
 
     bits: (N, W) uint32;  weights: (N, C) int — defaults to ones (C=1).
-    -> (unique_bits (U, W), weights (U, C) int32)
+    -> (unique_bits (U, W), weights (U, C) int32), the rows in ascending
+    order by word 0, then word 1, ... (``np.unique(bits, axis=0)``'s).
+
+    Numeric sorts, gathers and sums only: each lets go of the interpreter
+    lock, so a fold of a million rows on the store's compactor thread does
+    not stall the threads that serve counts (``np.unique(axis=0)`` sorts a
+    structured view and holds the lock throughout).
     """
     n = bits.shape[0]
     if weights is None:
         weights = np.ones((n, 1), dtype=np.int32)
     if weights.ndim == 1:
         weights = weights[:, None]
-    uniq, inv = np.unique(bits, axis=0, return_inverse=True)
-    agg = np.zeros((uniq.shape[0], weights.shape[1]), dtype=np.int64)
-    np.add.at(agg, inv.reshape(-1), weights)
+    if n == 0:
+        return (np.zeros(bits.shape, np.uint32),
+                np.zeros((0, weights.shape[1]), np.int32))
+    # np.lexsort's primary key is its last: word 0
+    order = (np.lexsort(bits.T[::-1]) if bits.shape[1]
+             else np.arange(n))
+    rows = bits[order]
+    first = np.ones(n, dtype=bool)
+    np.any(rows[1:] != rows[:-1], axis=1, out=first[1:])
+    starts = np.flatnonzero(first)
+    agg = np.add.reduceat(weights[order].astype(np.int64), starts, axis=0)
     if np.any(agg > np.iinfo(np.int32).max):
         raise OverflowError("per-row class weights exceed int32")
-    return uniq.astype(np.uint32), agg.astype(np.int32)
+    return rows[starts].astype(np.uint32), agg.astype(np.int32)
 
 
 def class_weights(classes: Sequence[int], n_classes: int = 2) -> np.ndarray:
@@ -229,13 +243,15 @@ def extend_vocab(
     mirroring the ``IncrementalMiner`` tail extension of its ``ItemOrder``.
     Returns ``vocab`` itself when the batch introduces nothing new.
     """
-    counts: Dict[Item, int] = {}
-    for t in transactions:
-        for a in set(t):
-            if a not in vocab:
-                counts[a] = counts.get(a, 0) + 1
-    if not counts:
+    # one set operation finds what is new; rows are walked item by item only
+    # when something is (an append of known items costs no per-item lookup)
+    new = set(chain.from_iterable(transactions)).difference(vocab._index())
+    if not new:
         return vocab
+    counts: Dict[Item, int] = dict.fromkeys(new, 0)
+    for t in transactions:
+        for a in new.intersection(t):
+            counts[a] += 1
     new = sorted(counts, key=lambda a: (-counts[a], repr(a)))
     return ItemVocab(vocab.items + tuple(new))
 

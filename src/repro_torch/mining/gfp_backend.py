@@ -154,9 +154,9 @@ class GFPBackend(CountBackend):
         w_now = store.vocab.n_words
         bits = pad_words(_host(store.base.bits), w_now)
         wts = _host(store.base.weights)
-        if store._delta_bits is not None:
-            bits = np.concatenate([bits, pad_words(store._delta_bits, w_now)])
-            wts = np.concatenate([wts, store._delta_weights])
+        if store.delta_rows:
+            bits = np.concatenate([bits, pad_words(store._delta.bits, w_now)])
+            wts = np.concatenate([wts, store._delta.weights])
         if bits.shape[0]:
             bits, wts = dedup_rows(bits, wts)
         kw.setdefault("device", store.device)

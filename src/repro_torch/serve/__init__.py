@@ -14,13 +14,13 @@ from .batcher import (BatchPlan, MicroBatcher, QueryRequest, build_masks,
                       canonical_itemset)
 from .cache import CountCache
 from .rules import RuleCache, RuleServer
-from .service import (CountServer, MiningRefreshError,
+from .service import (Answers, CountServer, MiningRefreshError,
                       versioned_mine_frequent)
 from .shard import ShardedCountBackend, ShardedDB
 from .store import VersionedCountBackend, VersionedDB, check_class_labels
 
 __all__ = [
-    "AsyncCompactor", "AsyncFlusher", "BatchPlan", "CountFuture",
+    "Answers", "AsyncCompactor", "AsyncFlusher", "BatchPlan", "CountFuture",
     "MicroBatcher",
     "QueryRequest", "build_masks", "canonical_itemset", "CountCache",
     "CountServer", "MiningRefreshError", "versioned_mine_frequent",

@@ -14,7 +14,8 @@ background thread with the two standard micro-batching triggers:
 some flush (background-triggered, an explicit synchronous ``flush()``, or
 the ``close()`` drain) answers the ticket.  Correctness is untouched: the
 async loop only decides WHEN the existing synchronous flush runs — every
-count is still the exact composed sweep at flush-time version.
+count is still the exact composed sweep at flush-time version, which the
+future's ``version`` names.
 
 Failure discipline matches the synchronous path: a failed flush restores the
 drained requests to the batcher (tickets stay answerable), the flusher
@@ -39,7 +40,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Dict, Hashable, Optional, Sequence
+from typing import Dict, Hashable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,12 +58,15 @@ class CountFuture:
     ``result(timeout)`` blocks until some flush answers the ticket and
     returns the (len(itemsets), C) int32 block — or raises the flush error
     if the serving pass ultimately failed, or ``TimeoutError`` on timeout.
+    Once answered, ``version`` is the store version the block was counted
+    at (None before).
     """
 
-    __slots__ = ("ticket", "_event", "_result", "_exc")
+    __slots__ = ("ticket", "version", "_event", "_result", "_exc")
 
     def __init__(self, ticket: int):
         self.ticket = ticket
+        self.version: Optional[int] = None
         self._event = threading.Event()
         self._result: Optional[np.ndarray] = None
         self._exc: Optional[BaseException] = None
@@ -78,8 +82,9 @@ class CountFuture:
             raise self._exc
         return self._result
 
-    def _set_result(self, value: np.ndarray) -> None:
+    def _set_result(self, value: np.ndarray, version: int) -> None:
         self._result = value
+        self.version = version
         self._event.set()
 
     def _set_exception(self, exc: BaseException) -> None:
@@ -106,8 +111,9 @@ class AsyncFlusher:
         self.max_delay_s = max_delay_ms / 1e3
         self.min_batch = min_batch
         self._futures: Dict[int, CountFuture] = {}
-        self._unclaimed: Dict[int, np.ndarray] = {}   # sync tickets a
-        # background flush answered; handed back by the next flush() call
+        # sync tickets a background flush answered, with the version they
+        # were counted at; handed back by the next flush() call
+        self._unclaimed: Dict[int, Tuple[np.ndarray, int]] = {}
         self._oldest: Optional[float] = None   # submit time of oldest pending
         self._backoff_until = 0.0              # no trigger before this time
         self._reason: Optional[str] = None     # consumed by _dispatch
@@ -156,10 +162,9 @@ class AsyncFlusher:
         return fut
 
     # -- flush plumbing -------------------------------------------------------
-    def _dispatch(self, out: Dict[int, np.ndarray],
-                  started: Optional[float] = None) -> None:
-        """Fulfill futures for an answered batch (called by
-        ``CountServer.flush`` under the server lock).  ``started`` is the
+    def _dispatch(self, out, started: Optional[float] = None) -> None:
+        """Fulfill futures for an answered batch, ``CountServer.flush``'s
+        ``Answers`` (called under the server lock).  ``started`` is the
         flush START time: the recorded latency is the queue wait of the
         batch's oldest request — the quantity ``max_delay_ms`` bounds —
         not the wait plus the counting pass itself."""
@@ -182,12 +187,13 @@ class AsyncFlusher:
                     # return dict — the future gets its OWN copy, so neither
                     # consumer can mutate the other's "exact" rows (the same
                     # immutability contract the cache's defensive copy keeps)
-                    fut._set_result(np.array(block, np.int32, copy=True))
+                    fut._set_result(np.array(block, np.int32, copy=True),
+                                    out.versions[ticket])
                 elif reason != "manual":
                     # a synchronously submitted ticket drained by a
                     # background (or drain) flush: its result must not
                     # vanish — the next explicit flush() hands it back
-                    self._unclaimed[ticket] = block
+                    self._unclaimed[ticket] = (block, out.versions[ticket])
         # CountServer.flush calls _dispatch under the server lock (see the
         # docstring): the lock IS held here, just not lexically visible
         self._reason = None          # repro-lint: disable=CONC002
@@ -195,9 +201,10 @@ class AsyncFlusher:
         self._oldest = (None if self._server.batcher.pending == 0
                         else time.monotonic())
 
-    def claim_unclaimed(self) -> Dict[int, np.ndarray]:
+    def claim_unclaimed(self) -> Dict[int, Tuple[np.ndarray, int]]:
         """Hand back (and forget) results of sync tickets that a background
-        flush answered (called by ``CountServer.flush`` under the lock)."""
+        flush answered, each with its version (called by
+        ``CountServer.flush`` under the lock)."""
         out, self._unclaimed = self._unclaimed, {}
         return out
 

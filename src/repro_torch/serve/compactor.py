@@ -7,11 +7,15 @@ follows the ``AsyncFlusher`` pattern (one daemon thread, an ``Event`` wake,
 ``close()`` drains): ``request()`` just wakes the thread and returns; the
 thread runs :meth:`~repro_torch.serve.store.VersionedDB._compact_pass`, which
 
-  * SNAPSHOTS (base, delta, epoch) under the store lock,
-  * builds the new deduped base OFF-lock (the expensive part — appends and
-    queries proceed against the old base+delta, which stays exact),
-  * commits under the lock ONLY if the epoch is unchanged; a concurrent
-    append invalidates the build, which is discarded and retried.
+  * SNAPSHOTS the base and the delta's first rows under the store lock,
+  * builds the new deduped base from them OFF-lock (the expensive part —
+    appends and queries proceed against the old base+delta, which stays
+    exact),
+  * commits under the lock: the new base, and as the delta the rows
+    appended since the snapshot.  Appends never void a build, so the fold
+    commits under steady appends; only another fold's commit in between
+    does, and that build is discarded (``store_discarded_compactions_total``)
+    and retried.
 
 Failure safety is inherited from the synchronous path: the new base is built
 BEFORE the delta drops, and a failed build records
@@ -43,9 +47,9 @@ _M_BG_RUNS = REGISTRY.counter("store_bg_compactions_total")
 _M_BG_RETRIES = REGISTRY.counter("store_bg_compaction_retries_total")
 _G_QUEUE_DEPTH = REGISTRY.gauge("store_compactor_queue_depth")
 
-# A build invalidated by concurrent appends is retried at most this many
-# times per wake; under sustained append pressure the NEXT append's request
-# picks the work up again, so capping only bounds wasted rebuilds.
+# A build voided by another fold's commit is retried at most this many
+# times per wake; the NEXT append over the threshold requests the work
+# again, so capping only bounds wasted rebuilds.
 MAX_RETRIES = 3
 
 
@@ -117,8 +121,8 @@ class AsyncCompactor:
             retries = 0
             while not committed and retries <= self.max_retries:
                 # _compact_pass absorbs build failures (recording them on
-                # the store) and returns False only when a concurrent
-                # append invalidated the epoch — worth an immediate retry
+                # the store) and returns False only when another fold
+                # committed first — worth an immediate retry
                 committed = self._store._compact_pass()
                 if not committed:
                     retries += 1

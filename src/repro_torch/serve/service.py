@@ -30,6 +30,12 @@ mirror and placement the server builds.
 
 Served counts are EXACT: every row equals a fresh ``dense_gfp_counts`` /
 brute-force run over the full transaction history at the same version.
+Each answer names that version: ``CountFuture.version`` on the async path,
+``Answers.versions[ticket]`` beside the blocks ``flush()`` returns.  A
+flush counts at the store version current when it starts; appends through
+``CountServer.append`` and flushes serialize on the server, so an answer's
+version is at least that of every append acknowledged before its request
+was submitted.
 
 Incremental re-mining (paper §5.2): ``mine(theta)`` bootstraps the frequent
 set on the resident engine; after each ``append`` the server re-establishes
@@ -64,6 +70,17 @@ Key = Tuple[Item, ...]
 
 _H_FLUSH_MS = REGISTRY.histogram("serve_flush_ms")
 _M_APPENDS = REGISTRY.counter("serve_appends_total")
+
+
+class Answers(dict):
+    """What ``flush()`` returns: {ticket -> (len(itemsets), C) int32 block},
+    and ``versions``: {ticket -> the store version the block was counted
+    at}.  A manual flush of an async server also hands back blocks that a
+    background flush counted earlier, each with its own version."""
+
+    def __init__(self):
+        super().__init__()
+        self.versions: Dict[int, int] = {}
 
 
 class MiningRefreshError(RuntimeError):
@@ -231,17 +248,18 @@ class CountServer:
     def __exit__(self, *exc) -> None:
         self.close()
 
-    def flush(self) -> Dict[int, np.ndarray]:
+    def flush(self) -> Answers:
         """Answer every pending request with one composed counting pass.
 
         Returns {ticket -> (len(itemsets), C) int32}, rows in each request's
-        submission order.  Unique uncached targets are counted in ONE
-        block_k-padded launch per resident segment; cached targets (same
-        itemset, same version) never touch the device.  Async-submitted
-        tickets in the batch have their futures fulfilled too, whoever
-        triggered the flush — and symmetrically, a synchronously submitted
-        ticket that a BACKGROUND flush drained is returned by the next
-        ``flush()`` call rather than dropped.
+        submission order, as :class:`Answers`, whose ``versions`` name the
+        store version each block was counted at.  Unique uncached targets
+        are counted in ONE block_k-padded launch per resident segment;
+        cached targets (same itemset, same version) never touch the device.
+        Async-submitted tickets in the batch have their futures fulfilled
+        too, whoever triggered the flush — and symmetrically, a
+        synchronously submitted ticket that a BACKGROUND flush drained is
+        returned by the next ``flush()`` call rather than dropped.
         """
         with self._lock:
             started = time.monotonic()
@@ -268,10 +286,13 @@ class CountServer:
                 with TRACER.span("serve.dispatch", {"n_tickets": len(out)}):
                     self._flusher._dispatch(out, started=started)
                 if manual:
-                    out.update(self._flusher.claim_unclaimed())
+                    for ticket, (block, version) in \
+                            self._flusher.claim_unclaimed().items():
+                        out[ticket] = block
+                        out.versions[ticket] = version
             return out
 
-    def _flush_impl(self) -> Dict[int, np.ndarray]:
+    def _flush_impl(self) -> Answers:
         with TRACER.span("serve.dedup") as sp:
             plan = self.batcher.take()
             sp.set("n_requests", len(plan.requests))
@@ -280,20 +301,21 @@ class CountServer:
             if plan.requests:
                 sp.set("first_ticket", plan.requests[0].request_id)
                 sp.set("last_ticket", plan.requests[-1].request_id)
+        out = Answers()
         if not plan.requests:
-            return {}
+            return out
         try:
-            resolved = self._resolve(plan.unique_keys)
+            resolved, version = self._resolve(plan.unique_keys)
         except BaseException:
             self.batcher.restore(plan.requests)  # failed flush is retryable
             raise
-        out: Dict[int, np.ndarray] = {}
         with TRACER.span("serve.reply", {"n_requests": len(plan.requests)}):
             for req in plan.requests:
                 block = (np.stack([resolved[k] for k in req.keys])
                          if req.keys
                          else np.zeros((0, self.store.n_classes), np.int32))
                 out[req.request_id] = block.astype(np.int32, copy=False)
+                out.versions[req.request_id] = version
         self.n_flushes += 1
         self.n_queries_served += plan.n_queries
         if self.cache is not None:
@@ -302,9 +324,11 @@ class CountServer:
             self.cache.publish_metrics()
         return out
 
-    def _resolve(self, keys: Sequence[Key]) -> Dict[Key, np.ndarray]:
-        """{key -> (C,) counts} at the CURRENT version: cache hits first, one
-        block_k-padded composed counting pass for the rest."""
+    def _resolve(self, keys: Sequence[Key]
+                 ) -> Tuple[Dict[Key, np.ndarray], int]:
+        """({key -> (C,) counts}, version) at the CURRENT version: cache
+        hits first, one block_k-padded composed counting pass for the
+        rest."""
         version = self.store.version
         resolved: Dict[Key, np.ndarray] = {}
         missing: List[Key] = []
@@ -334,7 +358,7 @@ class CountServer:
         elif keys:
             TRACER.instant("serve.count_skipped",
                            {"cache_hits": len(keys), "version": version})
-        return resolved
+        return resolved, version
 
     def query(self, itemsets: Sequence[Sequence[Item]],
               client_id: str = "_local") -> np.ndarray:
@@ -346,7 +370,7 @@ class CountServer:
         with self._lock, \
                 TRACER.span("serve.query", {"n_itemsets": len(itemsets)}):
             keys = [canonical_itemset(s) for s in itemsets]
-            resolved = self._resolve(list(dict.fromkeys(keys)))
+            resolved, _ = self._resolve(list(dict.fromkeys(keys)))
             self.n_queries_served += len(keys)
             if not keys:
                 return np.zeros((0, self.store.n_classes), np.int32)
@@ -359,10 +383,12 @@ class CountServer:
         """Fold a new batch into the resident DB (version bump ⇒ cache
         invalidation) and, if mining is active, refresh the frequent set via
         the §5.2 guided recount on the engine."""
+        # the store copies each row once; this list only lets the §5.2
+        # refresh walk the batch a second time
+        transactions = list(transactions)
         with self._lock, \
                 TRACER.span("serve.append",
                             {"n_rows": len(transactions)}) as sp:
-            transactions = [list(t) for t in transactions]
             old_version = self.store.version
             version = self.store.append(transactions, classes=classes)
             sp.set("version", version)

@@ -256,9 +256,9 @@ class ShardedDB:
                 if s.base_rows:
                     bit_parts.append(pad_words(_host(s.base.bits), w_now))
                     w_parts.append(_host(s.base.weights))
-                if s._delta_bits is not None:
-                    bit_parts.append(pad_words(s._delta_bits, w_now))
-                    w_parts.append(s._delta_weights)
+                if s.delta_rows:
+                    bit_parts.append(pad_words(s._delta.bits, w_now))
+                    w_parts.append(s._delta.weights)
             bits = (np.concatenate(bit_parts) if bit_parts
                     else np.zeros((0, w_now), np.uint32))
             weights = (np.concatenate(w_parts) if w_parts

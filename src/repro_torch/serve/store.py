@@ -12,17 +12,24 @@ technique of Danessh et al. 2010) instead of re-encoding per call:
     past ``spill_threshold_bytes`` of host RAM);
   * ``append(transactions)`` encodes a new batch under a TAIL-EXTENDED vocab
     (existing bit columns never move, so resident rows stay valid without
-    re-encoding), dedups it against the current tail **delta** segment, and
-    bumps the monotonically increasing ``version``;
+    re-encoding), dedups it within itself, adds it to the tail **delta**
+    segment (:class:`DeltaSegment`, a growing host buffer whose device mirror
+    grows by the rows appended since the last count), and bumps the
+    monotonically increasing ``version``.  An append costs its batch, never
+    the delta: rows repeated across batches are merged at the fold;
   * the delta is folded into the base (full re-dedup + residency reselection)
-    once it grows past ``merge_ratio`` of the base AND the ``min_compact_rows``
-    floor (a cold store must not pay a full rebuild per tiny append) — until
-    then every counting sweep COMPOSES base + delta: counts are int32 sums, so
-    the composition is bit-identical to a fresh encode of the concatenated
-    history.  With ``background_compaction=True`` the fold runs on an
-    :class:`~repro_torch.serve.compactor.AsyncCompactor` thread (snapshot
-    under ``_store_lock``, build off-lock, epoch-checked commit), so
-    ``append`` returns without paying it;
+    once its row count (appended rows, each batch deduped within itself)
+    passes ``merge_ratio`` of the base's distinct rows AND the
+    ``min_compact_rows`` floor (a cold store must not pay a full rebuild per
+    tiny append) — until then every counting sweep COMPOSES base + delta:
+    counts are int32 sums, so the composition is bit-identical to a fresh
+    encode of the concatenated history.  With ``background_compaction=True``
+    the fold runs on an :class:`~repro_torch.serve.compactor.AsyncCompactor`
+    thread: it snapshots the base and the delta's first rows under
+    ``_store_lock``, builds the new base from them off-lock, and at commit
+    installs it and keeps as the delta only the rows appended meanwhile, so
+    ``append`` returns without paying it and the fold commits under steady
+    appends;
   * ``counts`` / ``counts_masks`` answer a (K, W) target block with (K, C)
     per-class counts, exact at the current version.
 
@@ -78,6 +85,9 @@ _M_APPENDS = REGISTRY.counter("store_appends_total")
 _M_APPEND_ROWS = REGISTRY.counter("store_appended_rows_total")
 _M_COMPACTIONS = REGISTRY.counter("store_compactions_total")
 _M_FAILED_COMPACTIONS = REGISTRY.counter("store_failed_compactions_total")
+_M_DISCARDED_COMPACTIONS = REGISTRY.counter(
+    "store_discarded_compactions_total")
+_G_DELTA_ROWS = REGISTRY.gauge("store_delta_rows")
 _H_APPEND_MS = REGISTRY.histogram("store_append_ms")
 
 
@@ -121,6 +131,84 @@ def store_device(device: DeviceLike = None) -> torch.device:
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+class DeltaSegment:
+    """The rows appended since the last fold, each batch deduped within
+    itself, in a host buffer that grows by doubling, and their mirror on
+    ``device``, which grows by the rows appended since the last count.
+
+    Rows below ``rows`` are never written again: a background fold reads a
+    prefix of ``bits`` off the store lock while appends write past it (a
+    full buffer or a wider vocabulary moves the rows to a new buffer and
+    leaves the old one as it was)."""
+
+    def __init__(self, n_words: int, n_classes: int, device: torch.device):
+        self.rows = 0
+        self.device = device
+        self._bits = np.zeros((0, n_words), np.uint32)
+        self._weights = np.zeros((0, n_classes), np.int32)
+        self._mirror: Optional[tuple] = None   # (bits, weights) on device
+        self._mirrored = 0
+
+    @property
+    def n_words(self) -> int:
+        return int(self._bits.shape[1])
+
+    @property
+    def bits(self) -> np.ndarray:
+        return self._bits[:self.rows]
+
+    @property
+    def weights(self) -> np.ndarray:
+        return self._weights[:self.rows]
+
+    def add(self, bits: np.ndarray, weights: np.ndarray) -> None:
+        """Append a batch encoded at the store's current width (never
+        narrower than the segment's)."""
+        need = self.rows + int(bits.shape[0])
+        w = max(self.n_words, int(bits.shape[1]))
+        if w != self.n_words or need > self._bits.shape[0]:
+            cap = max(need, 2 * self._bits.shape[0], 256)
+            grown = np.zeros((cap, w), np.uint32)
+            grown[:self.rows, :self.n_words] = self.bits
+            gw = np.zeros((cap, self._weights.shape[1]), np.int32)
+            gw[:self.rows] = self.weights
+            if w != self.n_words:
+                self._mirror, self._mirrored = None, 0   # re-laid in full
+            self._bits, self._weights = grown, gw
+        self._bits[self.rows:need, :bits.shape[1]] = bits
+        self._weights[self.rows:need] = weights
+        self.rows = need
+
+    def tail(self, start: int) -> "DeltaSegment":
+        """A new segment holding this one's rows from ``start`` on."""
+        out = DeltaSegment(self.n_words, self._weights.shape[1], self.device)
+        if start < self.rows:
+            out.add(self.bits[start:], self.weights[start:])
+        return out
+
+    def on_device(self) -> tuple:
+        """The rows as (bits, weights) tensors on the device: the mirror
+        takes the rows appended since the last call, and is laid anew only
+        when the host buffer was (it grew, or the vocabulary widened)."""
+        if self._mirror is None or self._mirror[0].shape != self._bits.shape:
+            bits = torch.empty(self._bits.shape, dtype=torch.uint32,
+                               device=self.device)
+            weights = torch.empty(self._weights.shape, dtype=torch.int32,
+                                  device=self.device)
+            if self._mirror is not None:
+                bits[:self._mirrored].copy_(self._mirror[0][:self._mirrored])
+                weights[:self._mirrored].copy_(
+                    self._mirror[1][:self._mirrored])
+            self._mirror = (bits, weights)
+        if self._mirrored < self.rows:
+            lo, hi = self._mirrored, self.rows
+            self._mirror[0][lo:hi].copy_(torch.from_numpy(self._bits[lo:hi]))
+            self._mirror[1][lo:hi].copy_(
+                torch.from_numpy(self._weights[lo:hi]))
+            self._mirrored = hi
+        return self._mirror[0][:self.rows], self._mirror[1][:self.rows]
 
 
 class VersionedDB:
@@ -174,9 +262,6 @@ class VersionedDB:
         self.n_compactions = 0
         self.n_failed_compactions = 0
         self.last_compaction_error: Optional[str] = None
-        self._delta_bits: Optional[np.ndarray] = None   # (D, W) uint32, host
-        self._delta_weights: Optional[np.ndarray] = None  # (D, C) int32
-        self._delta_device = None   # (bits, weights) tensors on device, lazy
         self._class_totals = np.zeros(self.n_classes, np.int64)
         # the adaptive chooser's residency decision for the CURRENT base
         # (None when residency was explicitly forced by the caller)
@@ -187,6 +272,8 @@ class VersionedDB:
         self.vocab = vocab if vocab is not None else \
             ItemVocab.from_transactions(transactions)
         t_vocab = time.perf_counter() - t0
+        self._delta = DeltaSegment(self.vocab.n_words, self.n_classes,
+                                   self.device)
         timings = {}
         ub, uw = self._encode_batch(transactions, classes, timings=timings)
         self._class_totals = self._guard_totals(
@@ -348,7 +435,9 @@ class VersionedDB:
 
     @property
     def delta_rows(self) -> int:
-        return 0 if self._delta_bits is None else int(self._delta_bits.shape[0])
+        """Rows in the delta: appended rows, each batch deduped within
+        itself (rows repeated across batches merge at the fold)."""
+        return self._delta.rows
 
     @property
     def nbytes(self) -> int:
@@ -359,9 +448,7 @@ class VersionedDB:
             base = int(self.base.nbytes)
         else:
             base = int(self.base.bits.nbytes + self.base.weights.nbytes)
-        if self._delta_bits is not None:
-            base += self._delta_bits.nbytes + self._delta_weights.nbytes
-        return base
+        return base + self._delta.bits.nbytes + self._delta.weights.nbytes
 
     def stats(self) -> dict:
         # compactor stats are read BEFORE taking the store lock: its own _mu
@@ -394,6 +481,13 @@ class VersionedDB:
         return out
 
     # -- append ---------------------------------------------------------------
+    def _wants_fold(self) -> bool:
+        """``merge_ratio`` decides WHEN the fold pays, over the delta's rows
+        against the base's distinct rows; ``min_compact_rows`` keeps a
+        cold/tiny base from re-deduping the world on every append."""
+        return (self.delta_rows >= self.min_compact_rows and
+                self.delta_rows > self.merge_ratio * max(1, self.base_rows))
+
     def append(
         self,
         transactions: Sequence[Sequence[Item]],
@@ -401,66 +495,66 @@ class VersionedDB:
     ) -> int:
         """Fold a new batch in; returns the new (bumped) ``version``.
 
-        The batch is encoded under the tail-extended vocab, deduped against
-        the current delta tail, and kept as the delta segment until the
-        ``merge_ratio`` compaction threshold folds it into the base.
+        The batch is encoded under the tail-extended vocab, deduped within
+        itself, and added to the delta segment until the ``merge_ratio``
+        compaction threshold folds it into the base: an append sorts its
+        own rows only, whatever the delta holds.
         An empty batch is a no-op (version unchanged: no count can differ).
         """
         transactions = [list(t) for t in transactions]
         if not transactions:
             return self.version
         t0 = time.perf_counter()
-        # validate + encode BEFORE touching any store state: a rejected batch
-        # must leave no trace (no vocab tail, no totals, no version bump).
-        # Label-range validation comes first — the store's n_classes is fixed,
-        # so an out-of-range label can never be folded in
-        check_class_labels(classes, self.n_classes)
-        vocab = extend_vocab(transactions, self.vocab)
-        ub, uw = self._encode_batch(transactions, classes, vocab)
-        with self._store_lock:
-            totals = self._guard_totals(
-                self._class_totals + uw.sum(axis=0, dtype=np.int64))
-            self.vocab = vocab
-            self._class_totals = totals
-
-            w_now = self.vocab.n_words
-            if self._delta_bits is not None:
-                # dedup against the tail: one growing delta segment
-                ub, uw = dedup_rows(
-                    np.concatenate([pad_words(self._delta_bits, w_now), ub]),
-                    np.concatenate([self._delta_weights, uw]))
-            self._delta_bits, self._delta_weights = ub, uw
-            self._delta_device = None
-            self.n_rows += len(transactions)
-            self.n_appends += 1
-            self.version += 1
-            _M_APPENDS.inc()
-            _M_APPEND_ROWS.inc(len(transactions))
-            # merge_ratio decides WHEN the fold pays; min_compact_rows keeps
-            # a cold/tiny base from re-deduping the world on every append
-            if self.delta_rows >= self.min_compact_rows and \
-                    self.delta_rows > self.merge_ratio * max(1, self.base_rows):
-                if self._compactor is not None:
-                    # off the serving path: the append returns now, the
-                    # compactor thread snapshots/builds/commits behind
-                    # _store_lock (epoch-checked, failure-safe)
-                    self._compactor.request()
-                else:
-                    try:
-                        self.compact()
-                    except Exception as e:
-                        # compaction is a pure optimization and compact() is
-                        # failure-safe (the new base is built BEFORE the
-                        # delta drops), so the store still serves exact
-                        # counts from base+delta.  The batch IS committed at
-                        # this point — an escaping compactor error would
-                        # masquerade as a rejected append and invite a
-                        # double-counting retry.
-                        self.n_failed_compactions += 1
-                        self.last_compaction_error = f"{type(e).__name__}: {e}"
-                        _M_FAILED_COMPACTIONS.inc()
+        with TRACER.span("store.append", {"rows": len(transactions)}) as sp:
+            # validate + encode BEFORE touching any store state: a rejected
+            # batch must leave no trace (no vocab tail, no totals, no
+            # version bump).  Label-range validation comes first — the
+            # store's n_classes is fixed, so an out-of-range label can never
+            # be folded in
+            with TRACER.span("store.encode_batch"):
+                check_class_labels(classes, self.n_classes)
+                vocab = extend_vocab(transactions, self.vocab)
+                ub, uw = self._encode_batch(transactions, classes, vocab)
+            # store.delta_add covers the wait for the store lock too
+            with TRACER.span("store.delta_add"), self._store_lock:
+                totals = self._guard_totals(
+                    self._class_totals + uw.sum(axis=0, dtype=np.int64))
+                self.vocab = vocab
+                self._class_totals = totals
+                self._delta.add(ub, uw)
+                self.n_rows += len(transactions)
+                self.n_appends += 1
+                self.version += 1
+                version, delta_rows = self.version, self.delta_rows
+                _M_APPENDS.inc()
+                _M_APPEND_ROWS.inc(len(transactions))
+                _G_DELTA_ROWS.set(delta_rows)
+                if self._wants_fold():
+                    if self._compactor is not None:
+                        # off the serving path: the append returns now, the
+                        # compactor thread snapshots/builds/commits behind
+                        # _store_lock (failure-safe)
+                        self._compactor.request()
+                    else:
+                        try:
+                            self.compact()
+                        except Exception as e:
+                            # compaction is a pure optimization and
+                            # compact() is failure-safe (the new base is
+                            # built BEFORE the delta drops), so the store
+                            # still serves exact counts from base+delta.
+                            # The batch IS committed at this point — an
+                            # escaping compactor error would masquerade as a
+                            # rejected append and invite a double-counting
+                            # retry.
+                            self.n_failed_compactions += 1
+                            self.last_compaction_error = \
+                                f"{type(e).__name__}: {e}"
+                            _M_FAILED_COMPACTIONS.inc()
+            sp.set("delta_rows", delta_rows)
+            sp.set("version", version)
         _H_APPEND_MS.observe((time.perf_counter() - t0) * 1e3)
-        return self.version
+        return version
 
     def _base_rows_host(self, base, w_now: int):
         """The whole base as host arrays at width ``w_now``: a D2H copy of a
@@ -479,10 +573,11 @@ class VersionedDB:
                              "delta_rows": self.delta_rows}):
             w_now = self.vocab.n_words
             base_bits, base_w = self._base_rows_host(self.base, w_now)
-            had_delta = self._delta_bits is not None
+            had_delta = self.delta_rows > 0
             if had_delta:
-                base_bits = np.concatenate([base_bits, self._delta_bits])
-                base_w = np.concatenate([base_w, self._delta_weights])
+                base_bits = np.concatenate(
+                    [base_bits, pad_words(self._delta.bits, w_now)])
+                base_w = np.concatenate([base_w, self._delta.weights])
             ub, uw = dedup_rows(base_bits, base_w)
             # build the new base BEFORE dropping the delta: a failure here
             # (e.g. device OOM at residency reselection) must leave the
@@ -491,10 +586,10 @@ class VersionedDB:
             old = self.base
             self.base = self._make_base(ub, uw)
             if had_delta:
-                self._delta_bits = self._delta_weights = None
-                self._delta_device = None
+                self._delta = self._delta.tail(self.delta_rows)
                 self.n_compactions += 1
                 _M_COMPACTIONS.inc()
+                _G_DELTA_ROWS.set(0)
         self._drop_spilled(old)
 
     def _drop_spilled(self, old_base) -> None:
@@ -512,51 +607,63 @@ class VersionedDB:
 
     def _compact_pass(self) -> bool:
         """One background compaction attempt (the ``AsyncCompactor``'s unit
-        of work).  Snapshot under the lock, build off-lock, commit under the
-        lock only if no append (or other compaction) landed in between.
+        of work).  Snapshot the base and the delta's first ``n`` rows under
+        the lock, fold them off-lock, and commit under the lock: the new
+        base, and as the delta the rows appended since the snapshot.
+        Appends in between never void the build (their rows are kept), so
+        the fold commits under steady appends; another fold's commit in
+        between does, and the build is discarded.
 
         Returns ``True`` when done (committed, nothing to do, or build
         failed — failures are absorbed into ``last_compaction_error`` /
         ``n_failed_compactions``, the delta stays intact) and ``False`` when
-        a concurrent append invalidated the build (caller may retry)."""
+        another fold committed first (caller may retry)."""
         with self._store_lock:
-            if self._delta_bits is None:
+            if not self.delta_rows or not self._wants_fold():
                 return True
-            epoch = (self.n_appends, self.n_compactions)
+            epoch = self.n_compactions
             vocab = self.vocab
             base = self.base
-            dbits, dw = self._delta_bits, self._delta_weights
-        new_base = None
-        try:
-            with TRACER.span("store.bg_compact",
-                             {"delta_rows": int(dbits.shape[0])}):
+            n_snap = self.delta_rows
+            # rows below n_snap are never rewritten: views stay valid
+            dbits, dw = self._delta.bits, self._delta.weights
+        with TRACER.span("store.bg_compact",
+                         {"base_rows": self.base_rows,
+                          "folded_rows": n_snap}) as sp:
+            try:
                 w_now = vocab.n_words
-                base_bits, base_w = self._base_rows_host(base, w_now)
-                bits = np.concatenate([base_bits, pad_words(dbits, w_now)])
-                w = np.concatenate([base_w, dw])
-                ub, uw = dedup_rows(bits, w)
-                new_base = self._make_base(ub, uw, vocab=vocab)
-        except Exception as e:
-            with self._store_lock:
-                self.n_failed_compactions += 1
-                self.last_compaction_error = f"{type(e).__name__}: {e}"
-            _M_FAILED_COMPACTIONS.inc()
-            return True
-        with self._store_lock:
-            if (self.n_appends, self.n_compactions) != epoch:
-                committed = False
-            else:
-                self.base = new_base
-                self._delta_bits = self._delta_weights = None
-                self._delta_device = None
-                self.n_compactions += 1
-                committed = True
+                with TRACER.span("compact.fetch"):
+                    base_bits, base_w = self._base_rows_host(base, w_now)
+                with TRACER.span("compact.dedup", {"folded_rows": n_snap}):
+                    ub, uw = dedup_rows(
+                        np.concatenate([base_bits, pad_words(dbits, w_now)]),
+                        np.concatenate([base_w, dw]))
+                with TRACER.span("compact.build"):
+                    new_base = self._make_base(ub, uw, vocab=vocab)
+            except Exception as e:
+                with self._store_lock:
+                    self.n_failed_compactions += 1
+                    self.last_compaction_error = f"{type(e).__name__}: {e}"
+                _M_FAILED_COMPACTIONS.inc()
+                return True
+            # compact.commit covers the wait for the store lock too
+            with TRACER.span("compact.commit") as cs, self._store_lock:
+                committed = self.n_compactions == epoch
+                if committed:
+                    self.base = new_base
+                    self._delta = self._delta.tail(n_snap)
+                    self.n_compactions += 1
+                    kept = self.delta_rows
+                    _G_DELTA_ROWS.set(kept)
+                    cs.set("kept_rows", kept)
+                    sp.set("kept_rows", kept)
         if committed:
             _M_COMPACTIONS.inc()
             self._drop_spilled(base)
             return True
-        # a concurrent append won the race: this build counts rows that are
-        # no longer the whole story — discard it (and its on-disk gen)
+        # another fold committed first: this build counts rows that are
+        # already in the base — discard it (and its on-disk gen)
+        _M_DISCARDED_COMPACTIONS.inc()
         if isinstance(new_base, SpilledDB):
             new_base.delete()
         return False
@@ -579,21 +686,23 @@ class VersionedDB:
         got[oob] = 0
         return got
 
-    def _delta_tensors(self):
-        """The delta's mirror on the store's device, built once per delta:
-        queries don't pay a fresh upload of identical delta bytes on every
-        flush (appends and compaction commits drop it)."""
-        if self._delta_device is None:
-            self._delta_device = (_upload(self._delta_bits, self.device),
-                                  _upload(self._delta_weights, self.device))
-        return self._delta_device
-
     def _count_dense(self, bits: torch.Tensor, narrow: np.ndarray,
                      weights: torch.Tensor, **kw) -> np.ndarray:
         """One launch over a resident segment, copied back to the host."""
         got = itemset_counts(bits, _upload(narrow, self.device), weights,
                              use_kernel=self.use_kernel, **kw)
         return got.cpu().numpy()
+
+    def _count_delta(self, masks: np.ndarray, **kw) -> np.ndarray:
+        """One launch over the delta's device mirror (grown first by the
+        rows appended since the last count), copied back to the host, with
+        targets wider than the delta zeroed.  Caller holds the lock."""
+        with TRACER.span("store.count_delta", {"delta_rows": self.delta_rows}):
+            narrow, oob = self._narrow(masks, self._delta.n_words)
+            d_bits, d_weights = self._delta.on_device()
+            got = self._count_dense(d_bits, narrow, d_weights, **kw)
+            self.kernel_launches += 1
+            return self._zero_oob(got, oob)
 
     def counts_masks(self, masks: np.ndarray,
                      block_k: Optional[int] = None) -> np.ndarray:
@@ -624,12 +733,8 @@ class VersionedDB:
                     self.kernel_launches += 1
                 total += self._zero_oob(got, oob)
             # delta segment (bounded by merge_ratio * base_rows: one launch)
-            if self._delta_bits is not None:
-                narrow, oob = self._narrow(masks, self._delta_bits.shape[1])
-                d_bits, d_weights = self._delta_tensors()
-                got = self._count_dense(d_bits, narrow, d_weights, **bk)
-                self.kernel_launches += 1
-                total += self._zero_oob(got, oob)
+            if self.delta_rows:
+                total += self._count_delta(masks, **bk)
         return total
 
     def counts(self, itemsets: Sequence[Sequence[Item]]) -> np.ndarray:
@@ -700,7 +805,7 @@ class VersionedCountBackend(CountBackend):
 
     @property
     def n_count_chunks(self) -> int:
-        delta = 1 if self.store._delta_bits is not None else 0
+        delta = 1 if self.store.delta_rows else 0
         return max(1, self._base_chunks() + delta)
 
     def chunk_signature(self) -> dict:
@@ -739,21 +844,21 @@ class VersionedCountBackend(CountBackend):
                 idx = sample_index(u, min(u, TRAIT_SAMPLE_ROWS))
                 bits, wts = store.base.rows_at(idx[idx < nb])
                 bits = pad_words(bits, w_now)
-                if store._delta_bits is not None:
+                if store.delta_rows:
                     rest = idx[idx >= nb] - nb
                     bits = np.concatenate(
-                        [bits, pad_words(store._delta_bits[rest], w_now)])
-                    wts = np.concatenate([wts, store._delta_weights[rest]])
+                        [bits, pad_words(store._delta.bits[rest], w_now)])
+                    wts = np.concatenate([wts, store._delta.weights[rest]])
                 t = DatasetTraits.measure(bits, wts, store.vocab,
                                           store.n_rows)
                 return _dc_replace(
                     t, nbytes=store.nbytes, n_unique=u,
                     dedup_ratio=(u / store.n_rows if store.n_rows else 1.0))
             bits, wts = store._base_rows_host(store.base, w_now)
-            if store._delta_bits is not None:
+            if store.delta_rows:
                 bits = np.concatenate(
-                    [bits, pad_words(store._delta_bits, w_now)])
-                wts = np.concatenate([wts, store._delta_weights])
+                    [bits, pad_words(store._delta.bits, w_now)])
+                wts = np.concatenate([wts, store._delta.weights])
             return DatasetTraits.measure(bits, wts, store.vocab, store.n_rows)
 
     def counts(self, masks: np.ndarray, *, start_chunk: int = 0,
@@ -803,12 +908,8 @@ class VersionedCountBackend(CountBackend):
                     total = total + store._zero_oob(got, oob)
                     if on_chunk is not None:
                         on_chunk(0, total)
-            if store._delta_bits is not None and start_chunk <= nb:
-                narrow, oob = store._narrow(masks, store._delta_bits.shape[1])
-                d_bits, d_weights = store._delta_tensors()
-                got = store._count_dense(d_bits, narrow, d_weights)
-                store.kernel_launches += 1
-                total = total + store._zero_oob(got, oob)
+            if store.delta_rows and start_chunk <= nb:
+                total = total + store._count_delta(masks)
                 if on_chunk is not None:
                     on_chunk(nb, total)
             elif nb == 0 and start_chunk == 0 and on_chunk is not None:

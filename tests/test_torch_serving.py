@@ -1494,7 +1494,7 @@ def test_store_device_reaches_every_segment(tmp_path):
         assert getattr(db.base, "device", None) in (None, CPU)
         if isinstance(db.base.bits, torch.Tensor):
             assert db.base.bits.device == CPU
-        assert all(t.device == CPU for t in db._delta_device)
+        assert all(t.device == CPU for t in db._delta.on_device())
     sh = _sharded(tx, n_shards=2)
     assert all(s.device == CPU for s in sh.shards)
 
