@@ -4425,9 +4425,9 @@ def main() -> int:
         return res, launches, levels, into
 
     dense, dense_launches, levels, _ = run("dense")
-    if dense_launches != (levels - 1) + 1:
+    if dense_launches != levels + 1:     # every level, level 1 too, + fused
         raise AssertionError(f"dense: {dense_launches} launches, expected "
-                             f"{levels - 1} kernel-counted levels + 1")
+                             f"{levels} levels + 1")
     streamed, stream_launches, s_levels, into_launches = run(
         "streamed", streaming=True, chunk_rows=STREAM_CHUNK_ROWS)
     if into_launches == 0:          # K3: the streamed sweep's launches

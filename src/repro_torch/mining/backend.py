@@ -32,8 +32,10 @@ here:
 
   ``item_counts() -> Optional[(V, C) array]``
       Optional level-1 shortcut: per-item per-class counts for every vocab
-      item without a kernel launch (the dense engine's host column sums).
-      ``None`` means level 1 is counted through ``counts`` like any level.
+      item, outside the driver's ``mine.level`` spans (the dense engine
+      counts the V single-item masks on the device in one ``counts`` call;
+      the GFP hybrid sums host columns).  ``None`` means level 1 is counted
+      through ``counts`` like any level.
 
   ``traits() -> Optional[DatasetTraits]``
       Measured dataset characteristics
@@ -138,15 +140,14 @@ class DenseBackend(CountBackend):
         return DatasetTraits.of_db(self.db)
 
     def item_counts(self) -> np.ndarray:
-        """Level-1 shortcut: per-item counts from host column sums (exact,
-        no kernel launch — the same integers the kernel would produce)."""
-        bits = _host(self.db.bits)
-        w = _host(self.db.weights)
-        rows = np.zeros((self.vocab.size, self.n_classes), np.int64)
-        for c in range(self.vocab.size):
-            bit = (bits[:, c >> 5] >> np.uint32(c & 31)) & 1
-            rows[c] = (bit[:, None] * w).sum(axis=0)
-        return rows
+        """Level-1 shortcut: the V single-item masks (row c is bit ``c & 31``
+        of word ``c >> 5``) counted in one launch over the device-resident
+        rows; the bitmap never leaves the device."""
+        v = self.vocab.size
+        c = np.arange(v)
+        masks = np.zeros((v, int(self.db.bits.shape[1])), np.uint32)
+        masks[c, c >> 5] = np.uint32(1) << (c & 31).astype(np.uint32)
+        return self.counts(masks).astype(np.int64)
 
     def counts(self, masks, *, start_chunk=0, init=None, on_chunk=None):
         return self._single_chunk(

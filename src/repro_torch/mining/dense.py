@@ -213,9 +213,9 @@ def dense_mine_frequent(
     A shim over the unified driver (``mining/driver.py``): candidate level
     k+1 is generated (host) from frequent level k via prefix join +
     anti-monotone prune; each level is counted in ONE kernel launch — the
-    §5.1 'single guided invocation per level' realized densely (level 1 via
-    the host column-sum shortcut).  ``class_column`` restricts support to one
-    weight column (rare class).
+    §5.1 'single guided invocation per level' realized densely (level 1
+    too: the V single-item masks in one launch).  ``class_column`` restricts
+    support to one weight column (rare class).
 
     The streaming path (``streaming=True``, a ``StreamingDB`` input, an
     auto-selected large DB, or any ``checkpoint``) runs the same driver over
@@ -411,8 +411,9 @@ def _minority_report_dense(transactions, classes, target_class, min_support,
         launches += chunk_counter[0]  # exact: one launch per swept chunk
     else:
         # as the JAX package computes it, so results compare equal; it
-        # misses the last counted level when that level has no frequent
-        # itemset (ROADMAP §3) — ``ops.KERNEL_LAUNCHES`` counts the launches
+        # misses level 1's launch and, when that level has no frequent
+        # itemset, the last counted level's too (ROADMAP §3) —
+        # ``ops.KERNEL_LAUNCHES`` is the measured count
         launches += max(0, max((len(k) for k in freq1), default=1) - 1)
     engine = "streaming" if stream else "dense"
 

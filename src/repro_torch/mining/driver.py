@@ -3,8 +3,8 @@
 Every engine entry point (``dense_mine_frequent``,
 ``streaming_mine_frequent``) is a thin shim over :func:`mine_frequent` below: the
 driver owns candidate generation (``apriori_gen`` + canonical ordering),
-threshold absorption, the level-1 singles pass (with the dense column-sum
-shortcut when the backend offers one), and ``MiningCheckpoint`` save/load —
+threshold absorption, the level-1 singles pass (with the backend's
+``item_counts`` shortcut when it has one), and ``MiningCheckpoint`` save/load —
 including the MID-LEVEL partial state generalized from the streaming engine,
 so kill/resume works on every backend at that backend's chunk granularity.
 

@@ -104,6 +104,94 @@ def test_dense_mine_frequent_matches_jax_and_host(class_column):
                                                                     min_count)
 
 
+def _level1_table(v, seed):
+    """Rows over exactly ``v`` items (each appears), a third of them
+    repeated so that deduped weights exceed 1."""
+    rng = np.random.default_rng(seed)
+    tx = [sorted(int(a) for a in np.flatnonzero(rng.random(v) < 0.3))
+          for _ in range(90)]
+    tx += [[a] for a in range(v)]
+    return tx + tx[::3]
+
+
+def _item_counts_case(v, classes, device, use_kernel):
+    """The port's and the JAX package's ``item_counts`` on one table;
+    returns the count kernel's launches during the port's call."""
+    from repro_torch.kernels.itemset_count import ops
+    tx = _level1_table(v, seed=v)
+    y = {"one": None, "two": [int(i % 4 == 0) for i in range(len(tx))],
+         "two_one_empty": [0] * len(tx)}[classes]
+    n_classes = None if y is None else 2
+    db = tm.DenseDB.encode(tx, y, n_classes, device=device)
+    jdb = jm.DenseDB.encode(tx, y, n_classes)
+    assert db.vocab.size == v and int(db.weights.max()) > 1
+    backend = tm.DenseBackend(db, use_kernel=use_kernel)
+    before = ops.KERNEL_LAUNCHES
+    got = backend.item_counts()
+    launches = ops.KERNEL_LAUNCHES - before
+    want = jm.DenseBackend(jdb).item_counts()
+    assert got.dtype == np.int64 and got.shape == (v, db.n_classes)
+    assert np.array_equal(got, want)
+    if classes == "two_one_empty":
+        assert not got[:, 1].any()
+    return launches
+
+
+_ITEM_COUNTS_CASES = pytest.mark.parametrize(
+    "v,classes", [(v, c) for v in (1, 31, 32, 33, 64, 65, 115)
+                  for c in ("one", "two", "two_one_empty")])
+
+
+@_ITEM_COUNTS_CASES
+def test_dense_item_counts_match_jax(v, classes):
+    assert _item_counts_case(v, classes, CPU, use_kernel=False) == 0
+
+
+@pytest.mark.cuda
+@_ITEM_COUNTS_CASES
+def test_cuda_dense_item_counts_match_jax(v, classes):
+    """Level 1 through the count kernel: one launch, the JAX integers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    assert _item_counts_case(v, classes, torch.device("cuda"),
+                             use_kernel=True) == 1
+
+
+@pytest.mark.parametrize("class_column", [None, 1])
+def test_level1_shortcut_identical_and_guarded(class_column, monkeypatch):
+    """The port's twin of the JAX package's level-1 guard: the dense
+    engine's shortcut gives the same mine as counting level 1 like any
+    level, and equals the JAX mine; ``item_counts`` is one ``counts``
+    call; a backend without the shortcut refuses a forced request."""
+    tx, y = _bern(n=600, items=14, p_x=0.35, p_y=0.3, seed=2)
+    min_count = 40 if class_column is None else 12
+    db = tm.DenseDB.encode(tx, y, device=CPU)
+    want = jm.mine_frequent_backend(jm.DenseBackend(jm.DenseDB.encode(tx, y)),
+                                    min_count, class_column=class_column)
+    assert len(want) > len([k for k in want if len(k) == 1])
+    for shortcut in (None, True, False):
+        got = tm.mine_frequent_backend(tm.DenseBackend(db), min_count,
+                                       class_column=class_column,
+                                       level1_shortcut=shortcut)
+        assert got == want, shortcut
+
+    calls = []
+    counts = tm.DenseBackend.counts
+
+    def spy(self, masks, **kw):
+        calls.append(masks.shape)
+        return counts(self, masks, **kw)
+
+    monkeypatch.setattr(tm.DenseBackend, "counts", spy)
+    tm.DenseBackend(db).item_counts()
+    assert calls == [(db.vocab.size, db.vocab.n_words)]
+
+    sdb = tm.StreamingDB.encode(tx, y, chunk_rows=64, device=CPU)
+    with pytest.raises(ValueError):
+        tm.mine_frequent_backend(tm.StreamingBackend(sdb), min_count,
+                                 level1_shortcut=True)
+
+
 @pytest.mark.parametrize("chunk_rows", [1, 7, 128, None])
 def test_streaming_counts_bit_identical_with_resume(chunk_rows):
     rng = np.random.default_rng(chunk_rows or 0)
