@@ -4,8 +4,11 @@ The level-synchronous singles -> candidate-generation -> absorb loop lives
 ONCE in ``mining/driver.py``; what varies per counting engine is captured
 here:
 
-  ``counts(masks, *, start_chunk=0, init=None, on_chunk=None) -> (K, C)``
-      Exact per-class counts of a (K, W) uint32 target block.  The sweep is
+  ``counts(masks, *, block_k=None, start_chunk=0, init=None, on_chunk=None)``
+      Exact (K, C) per-class counts of a (K, W) uint32 target block.
+      ``block_k`` is the kernel's K-block size where the engine launches the
+      kernel over the caller's block (None resolves it through the tuning
+      table, as every miner does).  The sweep is
       CHUNKED at whatever granularity the engine naturally has
       (``n_count_chunks``): the streaming engine sweeps N-chunks, the
       versioned store sweeps base chunks + a delta chunk, the dense and
@@ -49,7 +52,10 @@ plus ``vocab`` / ``n_rows`` / ``n_classes`` / ``nbytes`` for introspection.
 This module implements the protocol for the dense, streaming and
 mesh-distributed engines; the GFP hybrid lives in ``mining/gfp_backend.py``,
 the disk tier in ``mining/spill.py``, and ``mining/chooser.py`` picks among
-them.
+them.  ``backend_of`` maps each DB form (dense, streaming, spilled) to the
+one backend that counts it, and ``count_resident`` is the one launch over
+rows already on the device: every count of a DB, the serving store's
+included, reaches the kernel through them.
 """
 from __future__ import annotations
 
@@ -99,8 +105,8 @@ class CountBackend:
         ``None`` when the engine cannot cheaply inspect its rows."""
         return None
 
-    def counts(self, masks: np.ndarray, *, start_chunk: int = 0,
-               init: Optional[np.ndarray] = None,
+    def counts(self, masks: np.ndarray, *, block_k: Optional[int] = None,
+               start_chunk: int = 0, init: Optional[np.ndarray] = None,
                on_chunk: ChunkHook = None) -> np.ndarray:
         raise NotImplementedError
 
@@ -116,6 +122,31 @@ class CountBackend:
         if on_chunk is not None:
             on_chunk(0, out)
         return out
+
+
+def count_resident(bits: torch.Tensor, weights: torch.Tensor,
+                   masks: np.ndarray, *, use_kernel: bool = True,
+                   block_k: Optional[int] = None) -> np.ndarray:
+    """One launch over device-resident (bits, weights): the masks go up,
+    the (K, C) int32 counts come back to the host."""
+    tgt = torch.from_numpy(np.ascontiguousarray(masks, np.uint32))
+    return itemset_counts(bits, tgt.to(bits.device), weights,
+                          use_kernel=use_kernel, block_k=block_k).cpu().numpy()
+
+
+def backend_of(db, *, use_kernel: bool = True) -> CountBackend:
+    """The backend that counts a DB form where it lives: a ``DenseDB`` in
+    one launch, a ``StreamingDB`` chunk by chunk from the host, a
+    ``SpilledDB`` segment by segment from disk."""
+    from .dense import DenseDB
+    from .spill import SpilledBackend, SpilledDB
+    if isinstance(db, SpilledDB):
+        return SpilledBackend(db, use_kernel=use_kernel)
+    if isinstance(db, StreamingDB):
+        return StreamingBackend(db, use_kernel=use_kernel)
+    if isinstance(db, DenseDB):
+        return DenseBackend(db, use_kernel=use_kernel)
+    raise TypeError(f"no counting backend for {type(db).__name__}")
 
 
 class DenseBackend(CountBackend):
@@ -149,13 +180,12 @@ class DenseBackend(CountBackend):
         masks[c, c >> 5] = np.uint32(1) << (c & 31).astype(np.uint32)
         return self.counts(masks).astype(np.int64)
 
-    def counts(self, masks, *, start_chunk=0, init=None, on_chunk=None):
+    def counts(self, masks, *, block_k=None, start_chunk=0, init=None,
+               on_chunk=None):
         return self._single_chunk(
-            lambda m: itemset_counts(
-                self.db.bits,
-                torch.from_numpy(np.ascontiguousarray(m, np.uint32)).to(
-                    self.db.bits.device),
-                self.db.weights, use_kernel=self.use_kernel),
+            lambda m: count_resident(self.db.bits, self.db.weights, m,
+                                     use_kernel=self.use_kernel,
+                                     block_k=block_k),
             masks, start_chunk, init, on_chunk)
 
 
@@ -191,12 +221,13 @@ class StreamingBackend(CountBackend):
         from .chooser import DatasetTraits
         return DatasetTraits.of_db(self.db)
 
-    def counts(self, masks, *, start_chunk=0, init=None, on_chunk=None):
+    def counts(self, masks, *, block_k=None, start_chunk=0, init=None,
+               on_chunk=None):
         rows = streaming_counts(
             self.db.bits, masks, self.db.weights,
             chunk_rows=self.db.chunk_rows, use_kernel=self.use_kernel,
-            accum=self.accum, start_chunk=start_chunk, init=init,
-            on_chunk=on_chunk, device=self.db.device)
+            accum=self.accum, block_k=block_k, start_chunk=start_chunk,
+            init=init, on_chunk=on_chunk, device=self.db.device)
         return _host(rows)
 
 

@@ -292,8 +292,9 @@ def backend_for_db(db, *, mesh=None, max_len: int = 0, use_kernel: bool = True,
         miner = DistributedMiner(mesh, use_kernel=use_kernel, device=device)
         return miner.backend(_host(db.bits), _host(db.weights),
                              db.vocab), choice
+    from .backend import backend_of
     if choice.name == "spilled":
-        from .spill import SpilledBackend, SpilledDB, own_directory, spill_root
+        from .spill import SpilledDB, own_directory, spill_root
         sdb = db
         if not isinstance(db, SpilledDB):
             root, made = spill_root()
@@ -302,22 +303,20 @@ def backend_for_db(db, *, mesh=None, max_len: int = 0, use_kernel: bool = True,
                 int(db.n_classes), root, device=device)
             if made:
                 own_directory(sdb)
-        return SpilledBackend(sdb, use_kernel=use_kernel), choice
+        return backend_of(sdb, use_kernel=use_kernel), choice
     if choice.name == "streaming":
-        from .backend import StreamingBackend
         from .stream import StreamingDB
         sdb = db if isinstance(db, StreamingDB) else StreamingDB.from_arrays(
             db.vocab, _host(db.bits), _host(db.weights), int(db.n_rows),
             int(db.n_classes), device=device)
-        return StreamingBackend(sdb, use_kernel=use_kernel), choice
+        return backend_of(sdb, use_kernel=use_kernel), choice
     if choice.name == "gfp":
         from .gfp_backend import GFPBackend
         return GFPBackend(db, use_kernel=use_kernel), choice
     if choice.name == "dense":
-        from .backend import DenseBackend
         from .dense import DenseDB
         ddb = db if isinstance(db, DenseDB) else DenseDB.from_arrays(
             db.vocab, _host(db.bits), _host(db.weights),
             n_rows=int(db.n_rows), n_classes=int(db.n_classes), device=device)
-        return DenseBackend(ddb, use_kernel=use_kernel), choice
+        return backend_of(ddb, use_kernel=use_kernel), choice
     raise ValueError(f"unknown backend {choice.name!r}")

@@ -27,56 +27,56 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..core.mra import Rule
 from ..core.tis import TISTree
-from ..kernels.itemset_count import itemset_counts
 from ..obs import TRACER
+from .backend import DenseBackend, backend_of
 from .encode import (FlatRows, ItemVocab, class_weights, dedup_rows,
                      encode_bitmap, encode_targets, flatten_rows,
                      project_columns)
 from .stream import (DEFAULT_STREAM_THRESHOLD_BYTES, StreamingDB, _host,
-                     streaming_counts, streaming_mine_frequent)
+                     streaming_mine_frequent)
 
 Item = Hashable
 
 
-def _resolve_streaming(db, streaming: Optional[bool],
-                       chunk_rows: Optional[int] = None) -> bool:
-    """Engine selection.  A StreamingDB always streams; an explicit flag or
-    chunk_rows opts in; otherwise stream iff the DB is host-resident (numpy
-    bits) AND over the size threshold.  A DenseDB (tensor bits) never
-    auto-streams: its allocation already succeeded, and streaming it would
-    only add a D2H copy + re-upload (size-based selection belongs BEFORE
-    encoding — see minority_report_dense)."""
-    if isinstance(db, StreamingDB):
-        return True
+def _stream_decision(streaming: Optional[bool], chunk_rows: Optional[int],
+                     checkpoint, nbytes: Optional[int]) -> bool:
+    """The engine choice, made here for every caller: an explicit flag
+    wins, then ``chunk_rows`` or a checkpoint opt in, then ``nbytes`` (the
+    encoded size, known or estimated before encoding; None for rows already
+    on the device) past the size threshold."""
+    if checkpoint is not None and streaming is False:
+        raise ValueError("per-chunk checkpointing requires the streaming "
+                         "engine; drop streaming=False or the checkpoint")
     if streaming is not None:
         return streaming
-    if chunk_rows is not None:
+    if chunk_rows is not None or checkpoint is not None:
         return True
-    if isinstance(db.bits, np.ndarray):
-        return (db.bits.size + db.weights.size) * 4 > \
-            DEFAULT_STREAM_THRESHOLD_BYTES
-    return False
+    return nbytes is not None and nbytes > DEFAULT_STREAM_THRESHOLD_BYTES
 
 
-def _count_block(db, masks: np.ndarray, *, use_kernel: bool, streaming: bool,
-                 chunk_rows: Optional[int]) -> np.ndarray:
-    """(K, C) host counts for one target batch on either engine
-    (bit-identical).  No block shape is pinned here: the kernel seam and the
-    streaming sweep resolve block_k/block_n/accum (and, for None
-    ``chunk_rows``, the chunk size) through the active tuning table
-    (``roofline.autotune.resolve_launch_config``)."""
-    if streaming:
-        if isinstance(db, StreamingDB):
-            return _host(db.counts(masks, use_kernel=use_kernel,
-                                   **({"chunk_rows": chunk_rows}
-                                      if chunk_rows else {})))
-        return _host(streaming_counts(
-            _host(db.bits), masks, _host(db.weights),
-            chunk_rows=chunk_rows, use_kernel=use_kernel,
-            device=db.bits.device))
-    tgt = torch.from_numpy(np.ascontiguousarray(masks, np.uint32))
-    return _host(itemset_counts(db.bits, tgt.to(db.bits.device), db.weights,
-                                use_kernel=use_kernel))
+def _resolve_streaming(db, streaming: Optional[bool],
+                       chunk_rows: Optional[int] = None,
+                       checkpoint=None) -> bool:
+    """Engine selection over an encoded DB.  A StreamingDB always streams;
+    otherwise ``_stream_decision``, sized only for host-resident (numpy)
+    bits.  A DenseDB (tensor bits) never auto-streams: its allocation
+    already succeeded, and streaming it would only add a D2H copy +
+    re-upload (size-based selection belongs BEFORE encoding — see
+    ``mra_encode``)."""
+    nbytes = ((db.bits.size + db.weights.size) * 4
+              if isinstance(db.bits, np.ndarray) else None)
+    stream = _stream_decision(streaming, chunk_rows, checkpoint, nbytes)
+    return stream or isinstance(db, StreamingDB)
+
+
+def _streaming_form(db, chunk_rows: Optional[int]) -> StreamingDB:
+    """``db`` as a StreamingDB swept at ``chunk_rows`` (None keeps a
+    StreamingDB's own grid, or sizes one for a host view of a DenseDB)."""
+    sdb = (db if isinstance(db, StreamingDB)
+           else StreamingDB.from_dense(db, chunk_rows))
+    if chunk_rows and sdb.chunk_rows != chunk_rows:
+        sdb = replace(sdb, chunk_rows=chunk_rows)
+    return sdb
 
 
 def _to(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -186,11 +186,10 @@ def dense_gfp_counts(
             union |= set(t)
         work_db = db.project(sorted(union, key=repr))
 
+    if _resolve_streaming(db, streaming, chunk_rows):
+        work_db = _streaming_form(work_db, chunk_rows)
     masks = encode_targets(targets, work_db.vocab)
-    counts = _count_block(work_db, masks, use_kernel=use_kernel,
-                          streaming=_resolve_streaming(db, streaming,
-                                                       chunk_rows),
-                          chunk_rows=chunk_rows)
+    counts = backend_of(work_db, use_kernel=use_kernel).counts(masks)
     for key, row in zip(keys, counts):
         out[key] = row
     return out
@@ -223,21 +222,12 @@ def dense_mine_frequent(
     per-chunk durable progress, so a killed mine resumes mid-level (see
     ``streaming_mine_frequent``).
     """
-    from .backend import DenseBackend
     from .driver import mine_frequent as _driver_mine
 
-    if checkpoint is not None and streaming is False:
-        raise ValueError("per-chunk checkpointing requires the streaming "
-                         "engine; drop streaming=False or the checkpoint")
-    if _resolve_streaming(db, streaming, chunk_rows) or checkpoint is not None:
-        from dataclasses import replace
-
-        sdb = (db if isinstance(db, StreamingDB)
-               else StreamingDB.from_dense(db, chunk_rows))
-        if chunk_rows and sdb.chunk_rows != chunk_rows:
-            sdb = replace(sdb, chunk_rows=chunk_rows)
+    if _resolve_streaming(db, streaming, chunk_rows, checkpoint):
         return streaming_mine_frequent(
-            sdb, min_count, class_column=class_column, max_len=max_len,
+            _streaming_form(db, chunk_rows), min_count,
+            class_column=class_column, max_len=max_len,
             use_kernel=use_kernel, checkpoint=checkpoint, on_chunk=on_chunk)
 
     return _driver_mine(DenseBackend(db, use_kernel=use_kernel), min_count,
@@ -339,19 +329,9 @@ def _mra_encode(transactions, classes, target_class, min_support, streaming,
         flat = replace(flat, ids=ids, rows=rows)
 
     # ---- pass 2: one encoded DB, two weight columns (C0, C1) ---------------
-    # engine selection mirrors _resolve_streaming: explicit flag wins, then
-    # chunk_rows/checkpoint opt in, then pre-encode size estimate
-    if checkpoint is not None and streaming is False:
-        raise ValueError("per-chunk checkpointing requires the streaming "
-                         "engine; drop streaming=False or the checkpoint")
-    if streaming is not None:
-        stream = streaming
-    elif chunk_rows is not None or checkpoint is not None:
-        stream = True
-    else:
-        est = n_db * 4 * (max(1, (len(items_kept) + 31) // 32) + 2)
-        stream = est > DEFAULT_STREAM_THRESHOLD_BYTES
-    if stream:
+    # the engine is chosen before encoding, on an estimate of the size
+    est = n_db * 4 * (max(1, (len(items_kept) + 31) // 32) + 2)
+    if _stream_decision(streaming, chunk_rows, checkpoint, est):
         db = StreamingDB.encode(flat, classes=y01, n_classes=2, vocab=vocab,
                                 chunk_rows=chunk_rows, device=dev)
     else:
@@ -424,9 +404,9 @@ def _minority_report_dense(transactions, classes, target_class, min_support,
     with TRACER.span("mra.fused", {"n_antecedents": len(freq1)}):
         itemsets = sorted(freq1.keys())
         masks = encode_targets(itemsets, vocab)
-        counts = _count_block(db, masks, use_kernel=use_kernel,
-                              streaming=stream, chunk_rows=chunk_rows)
-    launches += db.n_chunks if stream else 1
+        fused = backend_of(db, use_kernel=use_kernel)
+        counts = fused.counts(masks)
+    launches += fused.n_count_chunks
 
     with TRACER.span("mra.rules"):
         rules: List[Rule] = []

@@ -68,6 +68,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..kernels.itemset_count import itemset_counts_into
 from ..obs import REGISTRY, TRACER
+from .backend import CountBackend
 from .chooser import sample_index
 from .encode import ItemVocab
 from .plan import choose_chunk_rows, stream_chunks
@@ -590,7 +591,7 @@ def spilled_counts(
     return acc
 
 
-class SpilledBackend:
+class SpilledBackend(CountBackend):
     """:class:`~repro_torch.mining.backend.CountBackend` over a
     :class:`SpilledDB` — segment files are the checkpoint unit, so a mine
     killed mid-level resumes from the last durable segment after
@@ -618,12 +619,6 @@ class SpilledBackend:
         return {"backend": "spilled", "chunk_rows": self.db.chunk_rows,
                 "n_rows": self.db.n_unique}
 
-    def mine_signature(self) -> dict:
-        return {}
-
-    def item_counts(self):
-        return None
-
     def close(self) -> None:
         """Delete the store's directory now where the backend's maker owns
         it (``backend_for_db`` without ``$REPRO_TORCH_SPILL_DIR``); else
@@ -647,10 +642,11 @@ class SpilledBackend:
                            dedup_ratio=(self.db.n_unique / self.n_rows
                                         if self.n_rows else 1.0))
 
-    def counts(self, masks, *, start_chunk: int = 0,
-               init: Optional[np.ndarray] = None, on_chunk=None):
+    def counts(self, masks, *, block_k: Optional[int] = None,
+               start_chunk: int = 0, init: Optional[np.ndarray] = None,
+               on_chunk=None):
         rows = spilled_counts(
             self.db, masks, use_kernel=self.use_kernel, accum=self.accum,
-            start_chunk=start_chunk, init=init, on_chunk=on_chunk,
-            prefetch=self.prefetch)
+            block_k=block_k, start_chunk=start_chunk, init=init,
+            on_chunk=on_chunk, prefetch=self.prefetch)
         return _host(rows)

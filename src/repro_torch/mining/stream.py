@@ -52,6 +52,9 @@ def _host(a) -> np.ndarray:
     device) tensor; copies only when it must."""
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
+    if isinstance(a, np.ndarray) and a.flags.c_contiguous and \
+            a.flags.writeable:
+        return a                 # np.require's own check costs microseconds
     return np.require(a, requirements=["C", "W"])
 
 

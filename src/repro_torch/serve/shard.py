@@ -65,12 +65,11 @@ from typing import Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .._device import DeviceLike
-from ..mining.backend import CountBackend
 from ..mining.encode import ItemVocab, extend_vocab, pad_words
 from ..obs import REGISTRY
 from ..mining.stream import _host
-from .store import (VersionedDB, check_class_labels, counts_for_itemsets,
-                    store_device)
+from .store import (StoreCountBackend, VersionedDB, check_class_labels,
+                    counts_for_itemsets, store_device)
 
 Item = Hashable
 
@@ -291,9 +290,27 @@ class ShardedDB:
             _M_SWEEP_MESH.inc()
             return got
         _M_SWEEP_HOST.inc()
-        total = np.zeros((k, self.n_classes), np.int32)
-        for shard in self.shards:
-            total += shard.counts_masks(masks, block_k=block_k)
+        return self._shard_sweep(masks, block_k=block_k)
+
+    def _shard_sweep(self, masks: np.ndarray, *,
+                     block_k: Optional[int] = None, start_chunk: int = 0,
+                     init: Optional[np.ndarray] = None,
+                     on_chunk=None) -> np.ndarray:
+        """The host loop: each shard's composed sweep from shard
+        ``start_chunk`` on, summed onto ``init`` (the ``CountBackend``
+        resume contract, one chunk per shard)."""
+        k = int(masks.shape[0])
+        total = (np.zeros((k, self.n_classes), np.int32) if init is None
+                 else np.array(np.asarray(init), np.int32))
+        if k == 0:
+            return total
+        # every shard, empty ones included, completes its chunk, so recorded
+        # progress always matches the one-chunk-per-shard grid
+        for i in range(start_chunk, len(self.shards)):
+            total = total + self.shards[i].counts_masks(masks,
+                                                        block_k=block_k)
+            if on_chunk is not None:
+                on_chunk(i, total)
         return total
 
     def counts(self, itemsets: Sequence[Sequence[Item]]) -> np.ndarray:
@@ -303,7 +320,7 @@ class ShardedDB:
         return counts_for_itemsets(self, itemsets)
 
 
-class ShardedCountBackend(CountBackend):
+class ShardedCountBackend(StoreCountBackend):
     """:class:`~repro.mining.backend.CountBackend` over a :class:`ShardedDB`:
     the seam that runs the unified mining driver against the sharded store.
 
@@ -314,25 +331,6 @@ class ShardedCountBackend(CountBackend):
     chunk 0 (still exact) — and ``mine_signature`` pins the logical version:
     a resume across an ``append`` discards the whole checkpoint.
     """
-
-    def __init__(self, store: ShardedDB):
-        self.store = store
-
-    @property
-    def vocab(self) -> ItemVocab:
-        return self.store.vocab
-
-    @property
-    def n_rows(self) -> int:
-        return self.store.n_rows
-
-    @property
-    def n_classes(self) -> int:
-        return self.store.n_classes
-
-    @property
-    def nbytes(self) -> int:
-        return self.store.nbytes
 
     @property
     def n_count_chunks(self) -> int:
@@ -349,19 +347,11 @@ class ShardedCountBackend(CountBackend):
         return {"version": self.store.version,
                 "n_shards": self.store.n_shards}
 
-    def counts(self, masks: np.ndarray, *, start_chunk: int = 0,
-               init: Optional[np.ndarray] = None, on_chunk=None) -> np.ndarray:
-        store = self.store
-        k = int(masks.shape[0])
-        total = (np.zeros((k, store.n_classes), np.int32) if init is None
-                 else np.array(np.asarray(init), np.int32))
-        if k == 0:
-            return total
+    def counts(self, masks: np.ndarray, *, block_k: Optional[int] = None,
+               start_chunk: int = 0, init: Optional[np.ndarray] = None,
+               on_chunk=None) -> np.ndarray:
         # per-shard sweeps (not the fused mesh launch): the chunk boundary IS
-        # the resume point, and every shard — empty ones included — completes
-        # its chunk, so recorded progress always matches n_count_chunks
-        for i in range(start_chunk, len(store.shards)):
-            total = total + store.shards[i].counts_masks(masks)
-            if on_chunk is not None:
-                on_chunk(i, total)
-        return total
+        # the resume point
+        return self.store._shard_sweep(masks, block_k=block_k,
+                                       start_chunk=start_chunk, init=init,
+                                       on_chunk=on_chunk)

@@ -62,15 +62,13 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..kernels.itemset_count import itemset_counts
-from ..mining.backend import CountBackend
+from ..mining.backend import CountBackend, backend_of, count_resident
 from ..obs import REGISTRY, TRACER
 from ..mining.dense import DenseDB
 from ..mining.encode import (ItemVocab, class_weights, dedup_rows,
                              encode_bitmap, extend_vocab, pad_words)
-from ..mining.spill import (DEFAULT_SPILL_THRESHOLD_BYTES, SpilledDB,
-                            spilled_counts)
-from ..mining.stream import StreamingDB, _host, streaming_counts
+from ..mining.spill import DEFAULT_SPILL_THRESHOLD_BYTES, SpilledDB
+from ..mining.stream import StreamingDB, _host
 from .compactor import AsyncCompactor
 
 Item = Hashable
@@ -127,10 +125,6 @@ def store_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
 class DeltaSegment:
@@ -266,6 +260,7 @@ class VersionedDB:
         # the adaptive chooser's residency decision for the CURRENT base
         # (None when residency was explicitly forced by the caller)
         self.backend_choice = None
+        self._base_be: Optional[CountBackend] = None
 
         transactions = [list(t) for t in transactions]
         t0 = time.perf_counter()
@@ -444,11 +439,8 @@ class VersionedDB:
         # .nbytes is metadata on numpy arrays and tensors — and a manifest
         # fact on a spilled base: no D2H copy or disk read just to report a
         # size
-        if isinstance(self.base, SpilledDB):
-            base = int(self.base.nbytes)
-        else:
-            base = int(self.base.bits.nbytes + self.base.weights.nbytes)
-        return base + self._delta.bits.nbytes + self._delta.weights.nbytes
+        return (self._base_backend().nbytes + self._delta.bits.nbytes +
+                self._delta.weights.nbytes)
 
     def stats(self) -> dict:
         # compactor stats are read BEFORE taking the store lock: its own _mu
@@ -686,23 +678,74 @@ class VersionedDB:
         got[oob] = 0
         return got
 
-    def _count_dense(self, bits: torch.Tensor, narrow: np.ndarray,
-                     weights: torch.Tensor, **kw) -> np.ndarray:
-        """One launch over a resident segment, copied back to the host."""
-        got = itemset_counts(bits, _upload(narrow, self.device), weights,
-                             use_kernel=self.use_kernel, **kw)
-        return got.cpu().numpy()
+    def _base_backend(self) -> CountBackend:
+        # made anew only when a fold has installed another base
+        be = self._base_be
+        if be is None or be.db is not self.base:
+            be = self._base_be = backend_of(self.base,
+                                            use_kernel=self.use_kernel)
+        return be
 
-    def _count_delta(self, masks: np.ndarray, **kw) -> np.ndarray:
+    def _count_delta(self, masks: np.ndarray,
+                     block_k: Optional[int] = None) -> np.ndarray:
         """One launch over the delta's device mirror (grown first by the
         rows appended since the last count), copied back to the host, with
         targets wider than the delta zeroed.  Caller holds the lock."""
         with TRACER.span("store.count_delta", {"delta_rows": self.delta_rows}):
             narrow, oob = self._narrow(masks, self._delta.n_words)
             d_bits, d_weights = self._delta.on_device()
-            got = self._count_dense(d_bits, narrow, d_weights, **kw)
+            got = count_resident(d_bits, d_weights, narrow,
+                                 use_kernel=self.use_kernel, block_k=block_k)
             self.kernel_launches += 1
             return self._zero_oob(got, oob)
+
+    def _sweep(self, masks: np.ndarray, *, block_k: Optional[int] = None,
+               start_chunk: int = 0, init: Optional[np.ndarray] = None,
+               on_chunk=None) -> np.ndarray:
+        """The composed count of a (K, W_now) block: the base's chunks
+        through the base's backend, then one chunk for the delta, from
+        ``start_chunk`` on, added to ``init`` (the ``CountBackend`` resume
+        contract; ``on_chunk(j, acc)`` after chunk ``j``).  Only the chunks
+        swept add to ``kernel_launches``."""
+        k = int(masks.shape[0])
+        total = (np.zeros((k, self.n_classes), np.int32) if init is None
+                 else np.array(np.asarray(init), np.int32))
+        if k == 0:
+            return total
+        # the whole sweep runs under the store lock so a background commit
+        # cannot swap the base mid-composition (base counted pre-compaction
+        # + delta counted post-compaction would double-count the fold)
+        with self._store_lock:
+            base = self._base_backend() if self.base_rows else None
+            nb = 0 if base is None else base.n_count_chunks
+            if start_chunk < nb:
+                narrow, oob = self._narrow(masks, self._base_width())
+                hook = None
+                if on_chunk is not None:
+                    def hook(i, acc):
+                        # the base's last accumulator is its finished block
+                        # (oob rows zeroed): a resume at nb adds the delta
+                        on_chunk(i, self._zero_oob(acc, oob) if i == nb - 1
+                                 else acc)
+                # the caller's init, not total: a fresh sweep uploads no
+                # zero accumulator
+                total = self._zero_oob(
+                    base.counts(narrow, block_k=block_k,
+                                start_chunk=start_chunk, init=init,
+                                on_chunk=hook), oob)
+                self.kernel_launches += nb - start_chunk
+            if self.delta_rows and start_chunk <= nb:
+                total = total + self._count_delta(masks, block_k=block_k)
+                if on_chunk is not None:
+                    on_chunk(nb, total)
+            elif nb == 0 and start_chunk == 0 and on_chunk is not None:
+                # empty store: n_count_chunks still claims a 1-chunk grid, so
+                # the (trivially exact, all-zero) sweep must COMPLETE that
+                # chunk — otherwise a checkpointed mine records zero chunk
+                # progress against a claimed chunk and the partial never
+                # becomes resumable
+                on_chunk(0, total)
+        return total
 
     def counts_masks(self, masks: np.ndarray,
                      block_k: Optional[int] = None) -> np.ndarray:
@@ -711,31 +754,7 @@ class VersionedDB:
         of the full history: int32 sums commute with row partitioning).
         ``block_k`` forwards the caller's K-block size to the kernel so a
         block that was padded for it launches as one K-block."""
-        k = int(masks.shape[0])
-        if k == 0:
-            return np.zeros((0, self.n_classes), np.int32)
-        bk = {} if block_k is None else {"block_k": block_k}
-        total = np.zeros((k, self.n_classes), np.int32)
-        # the whole sweep runs under the store lock so a background commit
-        # cannot swap the base mid-composition (base counted pre-compaction
-        # + delta counted post-compaction would double-count the fold)
-        with self._store_lock:
-            # base segment
-            if self.base_rows:
-                narrow, oob = self._narrow(masks, self._base_width())
-                if isinstance(self.base, (StreamingDB, SpilledDB)):
-                    got = _host(self.base.counts(
-                        narrow, use_kernel=self.use_kernel, **bk))
-                    self.kernel_launches += self.base.n_chunks
-                else:
-                    got = self._count_dense(self.base.bits, narrow,
-                                            self.base.weights, **bk)
-                    self.kernel_launches += 1
-                total += self._zero_oob(got, oob)
-            # delta segment (bounded by merge_ratio * base_rows: one launch)
-            if self.delta_rows:
-                total += self._count_delta(masks, **bk)
-        return total
+        return self._sweep(masks, block_k=block_k)
 
     def counts(self, itemsets: Sequence[Sequence[Item]]) -> np.ndarray:
         """(K, C) counts for raw itemsets.  Itemsets naming items absent from
@@ -762,22 +781,12 @@ def counts_for_itemsets(store, itemsets: Sequence[Sequence[Item]]
     return out
 
 
-class VersionedCountBackend(CountBackend):
-    """:class:`~repro_torch.mining.backend.CountBackend` over a
-    :class:`VersionedDB` — the seam that lets the unified mining driver
-    (``mining/driver.py``) run against the serving store's composed
-    base+delta sweep, so it is exact mid-append without compaction.
+class StoreCountBackend(CountBackend):
+    """The part every backend over a serving store shares: the store's
+    vocab, rows, classes and bytes, read at call time (an append changes
+    them)."""
 
-    Chunk layout for mid-level checkpoint resume: the base segment's chunks
-    first (the ``StreamingDB`` chunk grid when the base is host-resident, one
-    chunk when device-dense), then one chunk for the delta segment.  The
-    ``mine_signature`` pins the store ``version``: a checkpoint resumed after
-    an ``append`` is discarded wholesale (levels counted at an older version
-    are not valid progress), while pure compaction — which changes the chunk
-    geometry but no count — only restarts the in-flight level from chunk 0.
-    """
-
-    def __init__(self, store: VersionedDB):
+    def __init__(self, store):
         self.store = store
 
     @property
@@ -796,27 +805,35 @@ class VersionedCountBackend(CountBackend):
     def nbytes(self) -> int:
         return self.store.nbytes
 
-    def _base_chunks(self) -> int:
-        if not self.store.base_rows:
-            return 0
-        return (self.store.base.n_chunks
-                if isinstance(self.store.base, (StreamingDB, SpilledDB))
-                else 1)
+
+class VersionedCountBackend(StoreCountBackend):
+    """:class:`~repro_torch.mining.backend.CountBackend` over a
+    :class:`VersionedDB` — the seam that lets the unified mining driver
+    (``mining/driver.py``) run against the serving store's composed
+    base+delta sweep, so it is exact mid-append without compaction.
+
+    Chunk layout for mid-level checkpoint resume: the base segment's chunks
+    first (the ``StreamingDB`` chunk grid when the base is host-resident, one
+    chunk when device-dense), then one chunk for the delta segment.  The
+    ``mine_signature`` pins the store ``version``: a checkpoint resumed after
+    an ``append`` is discarded wholesale (levels counted at an older version
+    are not valid progress), while pure compaction — which changes the chunk
+    geometry but no count — only restarts the in-flight level from chunk 0.
+    """
 
     @property
     def n_count_chunks(self) -> int:
-        delta = 1 if self.store.delta_rows else 0
-        return max(1, self._base_chunks() + delta)
+        store = self.store
+        base = store._base_backend().n_count_chunks if store.base_rows else 0
+        return max(1, base + (1 if store.delta_rows else 0))
 
     def chunk_signature(self) -> dict:
-        base = self.store.base
+        base = self.store._base_backend().chunk_signature()
         return {
             "backend": "versioned", "version": self.store.version,
             "base_rows": self.store.base_rows,
             "delta_rows": self.store.delta_rows,
-            "chunk_rows": (base.chunk_rows
-                           if isinstance(base, (StreamingDB, SpilledDB))
-                           else None),
+            "chunk_rows": base.get("chunk_rows"),
         }
 
     def mine_signature(self) -> dict:
@@ -861,62 +878,9 @@ class VersionedCountBackend(CountBackend):
                 wts = np.concatenate([wts, store._delta.weights])
             return DatasetTraits.measure(bits, wts, store.vocab, store.n_rows)
 
-    def counts(self, masks: np.ndarray, *, start_chunk: int = 0,
-               init: Optional[np.ndarray] = None, on_chunk=None) -> np.ndarray:
-        store = self.store
-        k = int(masks.shape[0])
-        total = (np.zeros((k, store.n_classes), np.int32) if init is None
-                 else np.array(np.asarray(init), np.int32))
-        if k == 0:
-            return total
-        # under the store lock: a background compaction commit mid-sweep
-        # would change the chunk grid (and double-count the folded delta)
-        with store._store_lock:
-            nb = self._base_chunks()
-            if nb and start_chunk < nb:
-                narrow, oob = store._narrow(masks, store._base_width())
-                if isinstance(store.base, (StreamingDB, SpilledDB)):
-                    hook = None
-                    if on_chunk is not None:
-                        def hook(i, acc):
-                            a = np.asarray(acc)
-                            if i == nb - 1:
-                                # the saved boundary accumulator must already
-                                # be the finished base block (oob rows
-                                # zeroed): a resume at start_chunk == nb adds
-                                # delta directly
-                                a = store._zero_oob(a, oob)
-                            on_chunk(i, a)
-                    if isinstance(store.base, SpilledDB):
-                        acc = spilled_counts(
-                            store.base, narrow, use_kernel=store.use_kernel,
-                            start_chunk=start_chunk, init=total,
-                            on_chunk=hook)
-                    else:
-                        acc = streaming_counts(
-                            store.base.bits, narrow, store.base.weights,
-                            chunk_rows=store.base.chunk_rows,
-                            use_kernel=store.use_kernel,
-                            start_chunk=start_chunk, init=total,
-                            on_chunk=hook, device=store.device)
-                    store.kernel_launches += nb - start_chunk
-                    total = store._zero_oob(_host(acc), oob)
-                else:
-                    got = store._count_dense(store.base.bits, narrow,
-                                             store.base.weights)
-                    store.kernel_launches += 1
-                    total = total + store._zero_oob(got, oob)
-                    if on_chunk is not None:
-                        on_chunk(0, total)
-            if store.delta_rows and start_chunk <= nb:
-                total = total + store._count_delta(masks)
-                if on_chunk is not None:
-                    on_chunk(nb, total)
-            elif nb == 0 and start_chunk == 0 and on_chunk is not None:
-                # empty store: n_count_chunks still claims a 1-chunk grid, so
-                # the (trivially exact, all-zero) sweep must COMPLETE that
-                # chunk — otherwise a checkpointed mine records zero chunk
-                # progress against a claimed chunk and the partial never
-                # becomes resumable
-                on_chunk(0, total)
-        return total
+    def counts(self, masks: np.ndarray, *, block_k: Optional[int] = None,
+               start_chunk: int = 0, init: Optional[np.ndarray] = None,
+               on_chunk=None) -> np.ndarray:
+        return self.store._sweep(masks, block_k=block_k,
+                                 start_chunk=start_chunk, init=init,
+                                 on_chunk=on_chunk)

@@ -64,7 +64,11 @@ def test_encode_dedup_bytes_equal(name):
     assert db.weights.numpy().tobytes() == np.asarray(jdb.weights).tobytes()
 
 
-def test_dense_db_from_reference_gives_equal_gfp_counts():
+@pytest.mark.parametrize("project", [True, False])
+@pytest.mark.parametrize("streaming", [None, True])
+def test_dense_db_from_reference_gives_equal_gfp_counts(streaming, project):
+    """On the dense engine and, asked to stream, through the streaming
+    backend over a host view of the same DenseDB, projected or not."""
     tx, y = _bern(seed=11)
     jdb = jm.DenseDB.encode(tx, y)
     db = dense_db_from_reference(jdb.vocab.items, np.asarray(jdb.bits),
@@ -83,8 +87,10 @@ def test_dense_db_from_reference_gives_equal_gfp_counts():
                                         replace=False)]
         tis.insert(t, target=True)
         jtis.insert(t, target=True)
-    got = tm.dense_gfp_counts(tis, db)
-    want = jm.dense_gfp_counts(jtis, jdb)
+    kw = dict(streaming=streaming, project=project,
+              chunk_rows=256 if streaming else None)
+    got = tm.dense_gfp_counts(tis, db, **kw)
+    want = jm.dense_gfp_counts(jtis, jdb, **kw)
     assert got.keys() == want.keys() and len(want) > 0
     for key in want:
         assert np.array_equal(np.asarray(got[key]), np.asarray(want[key]))

@@ -1250,6 +1250,52 @@ def test_versioned_db_matches_jax_across_appends(tmp_path, residency):
                                   np.asarray(ref.base.weights))
 
 
+@pytest.mark.parametrize("delta", ["empty", "rows", "wider"])
+@pytest.mark.parametrize("residency", ["dense", "streaming", "spilled"])
+def test_one_sweep_serves_and_mines(tmp_path, residency, delta):
+    """``counts_masks`` and ``VersionedCountBackend.counts`` are one sweep:
+    the same answer, resumable from every chunk boundary on the sweep's own
+    accumulators, equal to the JAX store's with the same launches, on each
+    base, with no delta, a delta, and a delta one vocabulary word wider."""
+    rng = np.random.default_rng(62)
+    tx = _db(rng, 120, 20)
+    y = [int(rng.random() < 0.3) for _ in tx]
+    kw = dict(classes=y, n_classes=2, merge_ratio=1e9)
+    if residency == "streaming":
+        kw.update(streaming=True, chunk_rows=32)
+    elif residency == "spilled":
+        kw.update(spill=True, chunk_rows=32)
+    port = _store(tx, spill_dir=str(tmp_path / "port"), **kw)
+    ref = js.VersionedDB(tx, spill_dir=str(tmp_path / "jax"), **kw)
+    assert port.resident == ref.resident == residency
+    if delta != "empty":
+        batch = _db(rng, 30, 45 if delta == "wider" else 20)
+        yb = [int(rng.random() < 0.3) for _ in batch]
+        port.append(batch, classes=yb)
+        ref.append(batch, classes=yb)
+    assert port.vocab.items == ref.vocab.items
+    assert port.vocab.n_words == (2 if delta == "wider" else 1)
+    probes = [(0, 1), (2,), (3, 7, 9), (19,), (0, 40), (33,), ("nope",)]
+    masks, _ = build_masks(probes, port.vocab, block_k=1)
+
+    before, jbefore = port.kernel_launches, ref.kernel_launches
+    got = port.counts_masks(masks)
+    np.testing.assert_array_equal(got, np.asarray(ref.counts_masks(masks)))
+    assert port.kernel_launches - before == ref.kernel_launches - jbefore
+
+    backend = VersionedCountBackend(port)
+    seen = {}
+    full = backend.counts(
+        masks, on_chunk=lambda j, acc: seen.__setitem__(j, np.array(acc)))
+    np.testing.assert_array_equal(full, got)
+    n = backend.n_count_chunks
+    assert sorted(seen) == list(range(n))
+    for start in range(n + 1):
+        init = None if start == 0 else seen[start - 1]
+        np.testing.assert_array_equal(
+            backend.counts(masks, start_chunk=start, init=init), got)
+
+
 def test_sharded_db_matches_jax_without_mesh():
     rng = np.random.default_rng(61)
     tx = _db(rng, 210, 12)
