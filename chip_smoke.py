@@ -331,6 +331,62 @@ def _done(t0):
     print(f"   phase seconds: {time.perf_counter() - t0:.3f}", flush=True)
 
 
+def _encode_kernels_equal(tx_rows, y, items_kept, dev) -> None:
+    """Each MRA encode kernel (``kernels/mra_encode``) against its plain
+    PyTorch version on the same card tensors, the main path's walk."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.mra_encode import ops, ref
+    from repro_torch.mining.encode import walk_rows
+
+    t = time.perf_counter()
+    walk = walk_rows(tx_rows)
+    offsets = np.zeros(len(walk.lengths) + 1, np.int64)
+    np.cumsum(walk.lengths, out=offsets[1:])
+    ids = torch.from_numpy(walk.ids).to(dev)
+    offsets = torch.from_numpy(offsets).to(dev)
+    rare = torch.from_numpy((np.asarray(y) == 1).view(np.uint8)).to(dev)
+    n_ids = len(walk.items)
+    ref_ids = ids.clone()
+    checks = [("count_rows", ops.count_rows(ids, offsets, rare, n_ids),
+               ref.count_rows_ref(ref_ids, offsets, rare, n_ids)),
+              ("count_rows' sorted rows", ids, ref_ids)]
+    id_of = {a: i for i, a in enumerate(walk.items)}
+    cols = torch.full((n_ids,), -1, dtype=torch.int32)
+    for j, a in enumerate(items_kept):
+        cols[id_of[a]] = j
+    cols = cols.to(dev)
+    w = max(1, -(-len(items_kept) // 32))
+    words, wkeys = ops.pack_rows(ids, offsets, cols, w)
+    rwords, rkeys = ref.pack_rows_ref(ids, offsets, cols, w)
+    checks += [("pack_rows words", words, rwords),
+               ("pack_rows keys", wkeys, rkeys)]
+    perm = None
+    for p in range(wkeys.shape[0] - 1, -1, -1):
+        idx = torch.argsort(wkeys[p] if perm is None else wkeys[p][perm],
+                            stable=True)
+        perm = idx if perm is None else perm[idx]
+    head = ops.row_heads(words, perm)
+    checks.append(("row_heads", head, ref.row_heads_ref(words, perm)))
+    run = head.cumsum(0, dtype=torch.int32)
+    runs = int(run[-1])
+    got = ops.gather_rows(words, perm, run, head, rare, runs)
+    want = ref.gather_rows_ref(words, perm, run, head, rare, runs)
+    checks += [("gather_rows bits", got[0], want[0]),
+               ("gather_rows weights", got[1], want[1])]
+    torch.cuda.synchronize()
+    for name, g, x in checks:
+        if g.dtype != x.dtype or not torch.equal(g, x):
+            raise AssertionError(f"encode kernel {name} != plain version on "
+                                 f"the main path's walk")
+    print(f"   encode kernels == plain version on the main path's walk "
+          f"({len(walk.lengths)} rows, {ids.numel()} occurrences, {n_ids} "
+          f"walked items, W={w}, {runs} runs): count_rows, pack_rows, "
+          f"row_heads, gather_rows equal "
+          f"({time.perf_counter() - t:.3f} s)")
+
+
 def _random_problem(rng, n, k, w, c, density=0.3):
     """The tests' random counting problem: sparse rows, 1-3 bit targets."""
     import numpy as np
@@ -4033,6 +4089,7 @@ def main() -> int:
 
     from repro_torch import obs
     from repro_torch.kernels import _build
+    from repro_torch.kernels.mra_encode import ops as encode_ops
     from repro_torch.kernels.itemset_count import b1_probe, ops
     from repro_torch.kernels.itemset_count.ops import (itemset_counts,
                                                        itemset_counts_into)
@@ -4063,7 +4120,8 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
     tb = time.perf_counter()
-    sources = (ops.SOURCE, ops.SOURCE_MXU, b1_probe.SOURCE)
+    sources = (ops.SOURCE, ops.SOURCE_MXU, b1_probe.SOURCE,
+               encode_ops.SOURCE)
     _build.build_all(sources)
     ops.build()
     for src in sources:
@@ -4207,6 +4265,7 @@ def main() -> int:
     print(f"   main-path DB (mra_encode): {len(tx_rows)} rows generated in "
           f"{t_gen:.3f} s, encoded in {t_enc:.3f} s: U={u} unique rows, "
           f"W={w_words}, C=2, {len(items_kept)} items")
+    _encode_kernels_equal(tx_rows, y, items_kept, dev)
     tgts = []
     for label, m in geoms:
         tgt_d = torch.from_numpy(m).to(dev)
@@ -4405,8 +4464,14 @@ def main() -> int:
     def levels_total():
         return obs.counter_total(obs.snapshot(), "mine_levels_total")
 
-    def run(label, **kw):
+    def routes():
+        snap = obs.snapshot()
+        return {r: obs.counter_value(snap, "mra_encode_route_total", route=r)
+                for r in ("device", "host")}
+
+    def run(label, want_route, **kw):
         lv0 = levels_total()
+        r0 = routes()
         ops.KERNEL_LAUNCHES = 0
         ops.KERNEL_LAUNCHES_INTO = 0
         t = time.perf_counter()
@@ -4417,19 +4482,26 @@ def main() -> int:
         launches = ops.KERNEL_LAUNCHES
         into = ops.KERNEL_LAUNCHES_INTO
         levels = int(levels_total() - lv0)
-        print(f"   {label}: {res.engine} engine, {len(res.rules)} rules, "
+        route = ",".join(r for r, v in routes().items() if v > r0[r])
+        if route != want_route:
+            raise AssertionError(f"{label}: encode route {route!r}, expected "
+                                 f"{want_route!r}")
+        print(f"   {label}: {res.engine} engine, encode route {route}, "
+              f"{len(res.rules)} rules, "
               f"{levels} levels, kernel launches measured {launches} "
               f"(result field {res.kernel_launches}; {into} of them "
               f"accumulate-into), "
               f"{time.perf_counter() - t:.3f} s", flush=True)
         return res, launches, levels, into
 
-    dense, dense_launches, levels, _ = run("dense")
+    # the encode: on the card for the dense engine (the kernels of
+    # kernels/mra_encode), numpy for a streamed pass 2 and the plain version
+    dense, dense_launches, levels, _ = run("dense", "device")
     if dense_launches != levels + 1:     # every level, level 1 too, + fused
         raise AssertionError(f"dense: {dense_launches} launches, expected "
                              f"{levels} levels + 1")
     streamed, stream_launches, s_levels, into_launches = run(
-        "streamed", streaming=True, chunk_rows=STREAM_CHUNK_ROWS)
+        "streamed", "host", streaming=True, chunk_rows=STREAM_CHUNK_ROWS)
     if into_launches == 0:          # K3: the streamed sweep's launches
         raise AssertionError("the streamed main path launched no "
                              "accumulate-into kernel (K3)")
@@ -4437,7 +4509,8 @@ def main() -> int:
         raise AssertionError(f"streamed: {stream_launches} launches, "
                              f"expected {n_chunks} chunks x "
                              f"({s_levels} levels + 1)")
-    plain, plain_launches, _, _ = run("plain version", use_kernel=False)
+    plain, plain_launches, _, _ = run("plain version", "host",
+                                      use_kernel=False)
     if plain_launches != 0:
         raise AssertionError(f"plain run launched the kernel "
                              f"{plain_launches} times")

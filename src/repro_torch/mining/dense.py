@@ -18,8 +18,10 @@ the brute-force oracle.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, replace
-from typing import Dict, Hashable, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, Hashable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -27,11 +29,12 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..core.mra import Rule
 from ..core.tis import TISTree
-from ..obs import TRACER
+from ..kernels import mra_encode as mra_kernels
+from ..obs import REGISTRY, TRACER
 from .backend import DenseBackend, backend_of
 from .encode import (FlatRows, ItemVocab, class_weights, dedup_rows,
                      encode_bitmap, encode_targets, flatten_rows,
-                     project_columns)
+                     project_columns, walk_rows)
 from .stream import (DEFAULT_STREAM_THRESHOLD_BYTES, StreamingDB, _host,
                      streaming_mine_frequent)
 
@@ -266,18 +269,37 @@ def mra_encode(
     streaming: Optional[bool] = None,
     chunk_rows: Optional[int] = None,
     checkpoint=None,
+    use_kernel: bool = True,
     device: DeviceLike = None,
 ):
     """Passes 1 and 2 of the MRA: keep the items frequent in the rare class
     (ordered by descending total count) and encode the DB once with two
     weight columns (C0, C1).  Returns ``(db, items_kept, n_rare)``: a
     ``StreamingDB`` when the engine streams, else a ``DenseDB``.  The rows
-    are walked once (``flatten_rows``); both passes work on the flat
-    arrays.  The whole encode, freeing those arrays included, is the span
-    ``mra.encode``."""
-    with TRACER.span("mra.encode"):
-        return _mra_encode(transactions, classes, target_class, min_support,
-                           streaming, chunk_rows, checkpoint, device)
+    are walked once; both passes work on the flat arrays.
+
+    On a CUDA device (unless ``use_kernel`` is False) the host only walks
+    the rows and the card does the rest with the kernels of
+    ``kernels/mra_encode``: pass 1 (``_scan_on_device``) and, when the
+    dense engine is chosen, pass 2's pack and the row dedup
+    (``_dense_on_device``).  Otherwise numpy runs pass 1 (``_scan_on_host``)
+    and pass 2 is ``DenseDB.encode`` or ``StreamingDB.encode`` on the host
+    (a streaming job on the card reads pass 1's distinct pairs back for
+    it).  Every route gives the same DB byte for byte.  The whole encode,
+    freeing the arrays included, is the span ``mra.encode``; its attribute
+    ``route`` and the counter ``mra_encode_route_total{route=...}`` name
+    where the DB was built: "device" or "host"."""
+    with TRACER.span("mra.encode") as sp:
+        db, items_kept, n_rare, route = _mra_encode(
+            transactions, classes, target_class, min_support, streaming,
+            chunk_rows, checkpoint, use_kernel, device)
+        sp.set("route", route)
+        _M_ROUTE[route].inc()
+        return db, items_kept, n_rare
+
+
+_M_ROUTE = {r: REGISTRY.counter("mra_encode_route_total", route=r)
+            for r in ("device", "host")}
 
 
 def _first_equal(row, item):
@@ -287,57 +309,179 @@ def _first_equal(row, item):
 
 
 def _mra_encode(transactions, classes, target_class, min_support, streaming,
-                chunk_rows, checkpoint, device):
+                chunk_rows, checkpoint, use_kernel, device):
     dev = resolve_device(device)
+    rare = np.asarray(classes) == target_class
+    n_rare = int(rare.sum())
+    on_card = dev.type == "cuda" and use_kernel
     # ---- pass 1: I' = items frequent in the rare class ----------------------
+    scan = (_scan_on_device(transactions, rare, min_support, dev) if on_card
+            else _scan_on_host(transactions, rare, min_support))
+    items_kept, n_db = scan.items_kept, scan.n_rows
+
+    # ---- pass 2: one encoded DB, two weight columns (C0, C1) ---------------
+    # the engine is chosen before encoding, on an estimate of the size
+    vocab = ItemVocab(tuple(items_kept))
+    est = n_db * 4 * (max(1, (len(items_kept) + 31) // 32) + 2)
+    y01 = rare.astype(np.int64)
+    if _stream_decision(streaming, chunk_rows, checkpoint, est):
+        db = StreamingDB.encode(scan.flat(), classes=y01, n_classes=2,
+                                vocab=vocab, chunk_rows=chunk_rows, device=dev)
+    elif on_card:
+        return _dense_on_device(scan, vocab, dev), items_kept, n_rare, \
+            "device"
+    else:
+        db = DenseDB.encode(scan.flat(), classes=y01, n_classes=2,
+                            vocab=vocab, device=dev)
+    return db, items_kept, n_rare, "host"
+
+
+@dataclass
+class _Scan:
+    """Pass 1's result: the kept items' ids (in the walk's numbering) in
+    the global order, the items, the rows counted, the distinct (item, row)
+    pairs sorted by item then row as host ``FlatRows`` (``flat()``) and,
+    when pass 1 ran on the card, the walked arrays there for pass 2."""
+    order: List[int]
+    items_kept: List[Item]
+    n_rows: int
+    n_ids: int                       # walked ids
+    flat: Callable[[], FlatRows]
+    card: Optional[Tuple[torch.Tensor, ...]] = None   # ids, offsets, rare
+
+
+def _kept_items(c_all, c1, first_rare, items, source, n_db: int,
+                min_support: float) -> Tuple[List[int], List[Item]]:
+    """Pass 1's verdict from its per-item counts (host arrays over every
+    walked id: all rows, rare-class rows, the first rare-class row holding
+    it): I' = the items frequent in the rare class, in the global order
+    (total count descending, then ``repr``).  -> (their ids, the items),
+    each item as the object first seen in a rare-class row."""
+    kept = np.flatnonzero((c1 > 0) & (c1 >= min_support * n_db))
+    kept_obj = {k: _first_equal(source[first_rare[k]], items[k])
+                for k in kept.tolist()}
+    order = sorted(kept_obj, key=lambda k: (-int(c_all[k]),
+                                            repr(kept_obj[k])))
+    return order, [kept_obj[k] for k in order]
+
+
+def _distinct_pairs(flat: FlatRows) -> FlatRows:
+    """``flat`` holding each distinct (item, row) pair once, sorted by item
+    then row: set semantics.  (A sort of the keys ``id * N + row``, not
+    np.unique: NumPy 2.3's np.unique takes 60x as long on a 1M-row table's
+    keys.)"""
+    keys = flat.ids.astype(np.int64)
+    keys *= flat.n_rows
+    keys += flat.rows
+    keys.sort()
+    new = np.ones(keys.size, bool)
+    np.not_equal(keys[1:], keys[:-1], out=new[1:])
+    ids, rows = np.divmod(keys[new], max(flat.n_rows, 1))
+    return replace(flat, ids=ids, rows=rows)
+
+
+def _scan_attrs(items_kept, items_in: int, n_pairs: int) -> dict:
+    return {"items_kept": len(items_kept), "items_in": items_in,
+            "repeats_dropped": items_in - n_pairs}
+
+
+def _scan_on_host(transactions, rare: np.ndarray, min_support: float
+                  ) -> _Scan:
+    """Pass 1 in numpy, the walk included: the span ``mra.scan``."""
     with TRACER.span("mra.scan") as sp:
         flat = flatten_rows(transactions)
-        n_db, n_ids = flat.n_rows, len(flat.items)
-        rare = np.asarray(classes) == target_class
-        n_rare = int(rare.sum())
-        y01 = rare.astype(np.int64)
-        # set semantics: each distinct (item, row) pair once, sorted by item
-        # (a sort, not np.unique: NumPy 2.3's np.unique takes 60x as long on
-        # a 1M-row table's keys)
-        pairs = flat.ids.astype(np.int64)
-        pairs *= n_db
-        pairs += flat.rows
-        pairs.sort()
-        new = np.ones(pairs.size, bool)
-        np.not_equal(pairs[1:], pairs[:-1], out=new[1:])
-        pairs = pairs[new]
-        ids, rows = np.divmod(pairs, max(n_db, 1))
+        n_db, n_ids, items_in = flat.n_rows, len(flat.items), flat.ids.size
+        flat = _distinct_pairs(flat)
+        ids, rows = flat.ids, flat.rows
         in_rare = rare[rows]
         c_all = np.bincount(ids, minlength=n_ids)
         rare_ids, rare_rows = ids[in_rare], rows[in_rare]
         c1 = np.bincount(rare_ids, minlength=n_ids)
-        kept = np.flatnonzero((c1 > 0) & (c1 >= min_support * n_db))
-        # each kept item as the object first seen in a rare-class row
         head = np.ones(rare_ids.size, bool)
         head[1:] = rare_ids[1:] != rare_ids[:-1]
         first_rare = np.zeros(n_ids, np.int64)
         first_rare[rare_ids[head]] = rare_rows[head]
-        kept_obj = {k: _first_equal(flat.source[first_rare[k]], flat.items[k])
-                    for k in kept.tolist()}
-        order = sorted(kept_obj, key=lambda k: (-int(c_all[k]),
-                                                repr(kept_obj[k])))
-        items_kept = [kept_obj[k] for k in order]  # global order
-        vocab = ItemVocab(tuple(items_kept))
-        sp.set("items_kept", len(items_kept))
-        sp.set("items_in", int(flat.ids.size))
-        sp.set("repeats_dropped", int(flat.ids.size - pairs.size))
-        flat = replace(flat, ids=ids, rows=rows)
+        order, items_kept = _kept_items(c_all, c1, first_rare, flat.items,
+                                        flat.source, n_db, min_support)
+        for k, v in _scan_attrs(items_kept, items_in, ids.size).items():
+            sp.set(k, v)
+    return _Scan(order, items_kept, n_db, n_ids, lambda: flat)
 
-    # ---- pass 2: one encoded DB, two weight columns (C0, C1) ---------------
-    # the engine is chosen before encoding, on an estimate of the size
-    est = n_db * 4 * (max(1, (len(items_kept) + 31) // 32) + 2)
-    if _stream_decision(streaming, chunk_rows, checkpoint, est):
-        db = StreamingDB.encode(flat, classes=y01, n_classes=2, vocab=vocab,
-                                chunk_rows=chunk_rows, device=dev)
-    else:
-        db = DenseDB.encode(flat, classes=y01, n_classes=2, vocab=vocab,
-                            device=dev)
-    return db, items_kept, n_rare
+
+def _scan_on_device(transactions, rare: np.ndarray, min_support: float,
+                    dev: torch.device) -> _Scan:
+    """Pass 1 after the host's walk, on ``dev`` (``kernels/mra_encode``):
+    the walked ids, the row offsets and the rare-class flags are copied
+    once (``encode.upload``); each row's ids are sorted in place and its
+    distinct items counted, read back to choose the items on the host
+    (``mra.scan``, filed from the walk's start: it spans the upload).
+    Memory grows with the occurrences, not with the walked vocabulary."""
+    t0 = time.perf_counter()
+    walk = walk_rows(transactions)
+    n_db, n_ids = len(walk.lengths), len(walk.items)
+    if n_db > np.iinfo(np.int32).max:    # a row weighs 1 in one class
+        raise OverflowError("per-row class weights exceed int32")
+    with TRACER.span("encode.upload"):
+        offsets = np.zeros(n_db + 1, np.int64)
+        np.cumsum(walk.lengths, out=offsets[1:])
+        ids = torch.from_numpy(walk.ids).to(dev)
+        offsets = torch.from_numpy(offsets).to(dev)
+        rare_d = torch.from_numpy(rare.view(np.uint8)).to(dev)
+    counts = mra_kernels.count_rows(ids, offsets, rare_d, n_ids)
+    c_all, c1, tag = counts.cpu().numpy()
+    order, items_kept = _kept_items(c_all, c1, n_db - tag, walk.items,
+                                    walk.source, n_db, min_support)
+    TRACER.record("mra.scan", t0, time.perf_counter(),
+                  _scan_attrs(items_kept, int(walk.ids.size),
+                              int(c_all.sum())))
+    # a streaming pass 2 takes the host's pairs
+    return _Scan(order, items_kept, n_db, n_ids,
+                 lambda: _distinct_pairs(walk.flat()), (ids, offsets, rare_d))
+
+
+def _sync(dev: torch.device) -> None:
+    """Ends a span with the device work it enqueued."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def _dense_on_device(scan: _Scan, vocab: ItemVocab, dev: torch.device
+                     ) -> DenseDB:
+    """Pass 2 and the row dedup on ``dev``, from ``_scan_on_device``'s
+    walked arrays: each row's kept items are packed into bits, the kept
+    columns in their order (``encode.bitmap``); the rows are sorted, and
+    each run of equal rows is kept once with its class weights
+    (``encode.dedup``).  Each span ends when its device work has.  The DB
+    equals ``DenseDB.encode``'s over the same vocabulary byte for byte,
+    rows in ``dedup_rows``' order.  A kernel a stage: a table of 20,000
+    rows costs as many launches as one of a million."""
+    ids, offsets, rare_d = scan.card
+    n_db = scan.n_rows
+    with TRACER.span("encode.bitmap"):
+        cols = np.full(scan.n_ids, -1, np.int32)     # walked id -> column
+        cols[scan.order] = np.arange(len(scan.order), dtype=np.int32)
+        words, keys = mra_kernels.pack_rows(ids, offsets,
+                                            torch.from_numpy(cols).to(dev),
+                                            vocab.n_words)
+        _sync(dev)
+    with TRACER.span("encode.dedup") as sp:
+        # ascending by word 0, then word 1, ... as unsigned (``dedup_rows``'
+        # order): stable sorts by each key (a pair of words), last pair first
+        perm = None
+        for p in range(keys.shape[0] - 1, -1, -1):
+            idx = torch.argsort(keys[p] if perm is None else keys[p][perm],
+                                stable=True)
+            perm = idx if perm is None else perm[idx]
+        head = mra_kernels.row_heads(words, perm)
+        run = head.cumsum(0, dtype=torch.int32)
+        runs = int(run[-1]) if n_db else 0
+        bits, weights = mra_kernels.gather_rows(words, perm, run, head,
+                                                rare_d, runs)
+        _sync(dev)
+        sp.set("rows_in", n_db)
+        sp.set("rows_out", runs)
+    return DenseDB(vocab=vocab, bits=bits.view(torch.uint32),
+                   weights=weights, n_rows=n_db, n_classes=2)
 
 
 def minority_report_dense(
@@ -373,7 +517,7 @@ def _minority_report_dense(transactions, classes, target_class, min_support,
     db, items_kept, n_rare = mra_encode(
         transactions, classes, target_class=target_class,
         min_support=min_support, streaming=streaming, chunk_rows=chunk_rows,
-        checkpoint=checkpoint, device=device)
+        checkpoint=checkpoint, use_kernel=use_kernel, device=device)
     stream = isinstance(db, StreamingDB)
     vocab = db.vocab
     n_db = db.n_rows

@@ -89,7 +89,25 @@ class FlatRows:
         return self.n_rows
 
 
-def flatten_rows(transactions: Iterable[Iterable[Item]]) -> FlatRows:
+@dataclass(frozen=True)
+class WalkedRows:
+    """The walk alone: row ``r`` holds the items ``items[ids[k]]`` for
+    ``k`` in ``[o, o + lengths[r])``, ``o`` the sum of the lengths before
+    ``r``."""
+
+    ids: np.ndarray              # (T,) int32 dense item id of each occurrence
+    lengths: np.ndarray          # (N,) int64 items per row
+    items: Tuple[Item, ...]      # id -> item: the first object seen of each
+    source: Sequence[Iterable[Item]]  # the rows as walked
+
+    def flat(self) -> FlatRows:
+        """The walk with each occurrence's row spelt out."""
+        n = len(self.lengths)
+        return FlatRows(ids=self.ids, rows=np.repeat(np.arange(n), self.lengths),
+                        items=self.items, n_rows=n, source=self.source)
+
+
+def walk_rows(transactions: Iterable[Iterable[Item]]) -> WalkedRows:
     """One walk over the rows: each item to a dense id (first seen, first
     numbered) into an int32 array, all in C.  Rows without a length
     (generators) are read into tuples first."""
@@ -104,8 +122,13 @@ def flatten_rows(transactions: Iterable[Iterable[Item]]) -> FlatRows:
     index.default_factory = index.__len__    # an unseen item: the next id
     ids = np.fromiter(map(index.__getitem__, chain.from_iterable(rows)),
                       np.int32, int(lengths.sum()))
-    return FlatRows(ids=ids, rows=np.repeat(np.arange(len(rows)), lengths),
-                    items=tuple(index), n_rows=len(rows), source=rows)
+    return WalkedRows(ids=ids, lengths=lengths, items=tuple(index),
+                      source=rows)
+
+
+def flatten_rows(transactions: Iterable[Iterable[Item]]) -> FlatRows:
+    """``walk_rows``, with each occurrence's row spelt out."""
+    return walk_rows(transactions).flat()
 
 
 def encode_bitmap(

@@ -19,11 +19,15 @@ from repro.data import bernoulli_db as jax_bernoulli_db
 from repro.data import census_like_db as jax_census_like_db
 from repro.mining.distributed import MiningCheckpoint as JaxCheckpoint
 from repro_torch import mining as tm
+from repro_torch import obs
 from repro_torch.convert import dense_db_from_reference
 from repro_torch.core import ItemOrder, TISTree, mine_frequent
 from repro_torch.data import bernoulli_db, census_like_db
 from repro_torch.launch import mine as launch_mine
 from repro_torch.mining import MiningCheckpoint
+from repro_torch.mining import dense as tdense
+from repro_torch.mining.encode import walk_rows
+from repro_torch.obs import TRACER
 
 CPU = torch.device("cpu")
 
@@ -506,6 +510,258 @@ def test_flat_encode_matches_jax_on_edge_inputs(case, engine, monkeypatch):
     got = tm.encode_bitmap(make_rows(), tm.ItemVocab(tuple(items_kept)))
     jbits = jm.encode_bitmap(list(make_rows()), vocab)
     assert got.dtype == jbits.dtype and got.tobytes() == jbits.tobytes()
+
+
+def _route_case(case):
+    """-> (rows, classes, min_support) for the routes of the MRA's encode."""
+    if case in ("bernoulli", "no_rare", "nothing_kept"):
+        tx, y = _bern()
+        if case == "no_rare":
+            y = np.zeros_like(y)
+        return tx, y, 2.0 if case == "nothing_kept" else 0.01
+    if case == "census":
+        rows, y = _census()
+        return rows, y, 0.002
+    if case == "wide_vocab":
+        # 70 walked items a kept one: most items are in one row each
+        tx, y = _bern(n=600)
+        return [t + [f"u{i}.{j}" for j in range(3)] for i, t in
+                enumerate(tx)], y, 0.01
+    make_rows, y, _ = _edge_table(case)
+    return make_rows(), y, 0.5 / len(y)
+
+
+_ROUTE_CASES = ["bernoulli", "repeats", "empty_rows", "no_rare",
+                "nothing_kept", "equal_hashables", "vocab_65", "strings",
+                "census", "wide_vocab"]
+
+
+def _traced(fn):
+    """-> (fn(), the spans it filed)."""
+    obs.configure(tracing=True)
+    try:
+        TRACER.reset()
+        out = fn()
+        return out, [s for s in TRACER.spans() if s.name != "py.gc"]
+    finally:
+        obs.configure(tracing=False)
+
+
+def _attrs(spans, name):
+    (span,) = [s for s in spans if s.name == name]
+    return span.attrs
+
+
+def _jax_encoding(rows, y, min_support, monkeypatch):
+    """-> (the JAX package's kept items, its DenseDB over them): its passes
+    1 and 2 alone, no antecedent mine."""
+    monkeypatch.setattr("repro.mining.dense.dense_mine_frequent",
+                        lambda *a, **kw: {})
+    want = jm.minority_report_dense(rows, y, min_support=min_support,
+                                    min_confidence=0.5, streaming=False)
+    y01 = [int(v == 1) for v in y]
+    return want.items_kept, jm.DenseDB.encode(
+        rows, classes=y01, n_classes=2,
+        vocab=jm.ItemVocab(tuple(want.items_kept)))
+
+
+def _check_device_route(case, dev, monkeypatch):
+    """The MRA's encode after the walk on ``dev`` (``_scan_on_device`` then
+    ``_dense_on_device``) gives the JAX package's DB and the numpy route's
+    byte for byte, rows in the same order, the same kept items (down to the
+    objects: the numpy route's), the numpy route's distinct pairs for a
+    streaming pass 2 and its ``mra.scan`` and ``encode.dedup`` attributes;
+    its spans come in the order upload, scan, bitmap, dedup."""
+    rows, y, min_support = _route_case(case)
+    (db, kept, n_rare), host = _traced(lambda: tm.mra_encode(
+        rows, y, min_support=min_support, streaming=False, device=CPU))
+    assert _attrs(host, "mra.encode")["route"] == "host"
+    rare = np.asarray(y) == 1
+
+    def on_device():
+        scan = tdense._scan_on_device(rows, rare, min_support, dev)
+        vocab = tm.ItemVocab(tuple(scan.items_kept))
+        return scan, tdense._dense_on_device(scan, vocab, dev)
+
+    (scan, got), dev_spans = _traced(on_device)
+    assert isinstance(db, tm.DenseDB) and isinstance(got, tm.DenseDB)
+    assert got.bits.device.type == got.weights.device.type == dev.type
+    bits, weights = got.bits.cpu(), got.weights.cpu()
+    assert bits.dtype == db.bits.dtype == torch.uint32
+    assert weights.dtype == db.weights.dtype == torch.int32
+    assert bits.shape == db.bits.shape
+    assert bits.numpy().tobytes() == db.bits.numpy().tobytes()
+    assert weights.numpy().tobytes() == db.weights.numpy().tobytes()
+    jkept, jdb = _jax_encoding(rows, y, min_support, monkeypatch)
+    assert bits.numpy().tobytes() == np.asarray(jdb.bits).tobytes()
+    assert weights.numpy().tobytes() == np.asarray(jdb.weights).tobytes()
+    assert _typed(scan.items_kept) == _typed(jkept)
+    assert (got.n_rows, got.n_classes) == (db.n_rows, db.n_classes)
+    assert got.vocab == db.vocab
+    assert len(scan.items_kept) == len(kept)
+    assert all(a is b for a, b in zip(scan.items_kept, kept))
+    assert n_rare == int(rare.sum())
+    assert bool(kept) == (case not in ("no_rare", "nothing_kept"))
+    want = tdense._scan_on_host(rows, rare, min_support).flat()
+    pairs = scan.flat()
+    assert np.array_equal(pairs.ids, want.ids)
+    assert np.array_equal(pairs.rows, want.rows)
+    assert pairs.n_rows == want.n_rows and pairs.items == want.items
+    for name in ("mra.scan", "encode.dedup"):
+        assert _attrs(dev_spans, name) == _attrs(host, name)
+    assert [s.name for s in dev_spans] == ["encode.upload", "mra.scan",
+                                           "encode.bitmap", "encode.dedup"]
+
+
+@pytest.mark.parametrize("case", _ROUTE_CASES)
+def test_mra_encode_device_route_equals_host_route(case, monkeypatch):
+    """The device route's plain PyTorch version (``kernels/mra_encode/
+    ref.py``, the route a CUDA device takes, run here on the CPU)."""
+    _check_device_route(case, CPU, monkeypatch)
+
+
+@pytest.mark.parametrize("bad", ["ids_dtype", "offsets_dtype", "rare_dtype",
+                                 "cols_dtype", "perm_length"])
+def test_mra_encode_kernels_refuse_bad_buffers(bad):
+    """The encode kernels read raw pointers: their wrappers refuse a tensor
+    of another type or length before any launch."""
+    from repro_torch.kernels import mra_encode as kernels
+    ids = torch.tensor([1, 0, 1], dtype=torch.int32)
+    offsets = torch.tensor([0, 3], dtype=torch.int64)
+    rare = torch.ones(1, dtype=torch.uint8)
+    counts = kernels.count_rows(ids, offsets, rare, 2)
+    assert counts.tolist() == [[1, 1], [1, 1], [1, 1]]
+    assert ids.tolist() == [0, 1, 1]
+    cols = torch.tensor([1, -1], dtype=torch.int32)
+    words, wkeys = kernels.pack_rows(ids, offsets, cols, 1)
+    assert words.tolist() == [[2]]
+    perm = torch.zeros(1, dtype=torch.int64)
+    calls = {
+        "ids_dtype": lambda: kernels.count_rows(ids.long(), offsets, rare, 2),
+        "offsets_dtype": lambda: kernels.pack_rows(ids, offsets.int(), cols,
+                                                   1),
+        "rare_dtype": lambda: kernels.count_rows(ids, offsets, rare.bool(), 2),
+        "cols_dtype": lambda: kernels.pack_rows(ids, offsets, cols.long(), 1),
+        "perm_length": lambda: kernels.row_heads(words, perm[:0]),
+    }
+    with pytest.raises(ValueError):
+        calls[bad]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _ROUTE_CASES)
+def test_cuda_mra_encode_device_route_equals_host_route(case, monkeypatch):
+    """The device route's kernels (``kernels/mra_encode``) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    _check_device_route(case, torch.device("cuda"), monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bernoulli", "repeats", "empty_rows",
+                                  "vocab_65", "census", "wide_vocab"])
+def test_cuda_mra_encode_kernels_match_plain_version(case):
+    """Each encode kernel on the card gives its plain PyTorch version's
+    output (``ref.py``) on the same card tensors, word for word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    from repro_torch.kernels.mra_encode import ops, ref
+    rows, y, min_support = _route_case(case)
+    dev = torch.device("cuda")
+    walk = walk_rows(rows)
+    offsets = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(walk.lengths)]).astype(np.int64)).to(dev)
+    ids = torch.from_numpy(walk.ids).to(dev)
+    rare = torch.from_numpy((np.asarray(y) == 1).view(np.uint8)).to(dev)
+    want_ids = ids.clone()
+    want = ref.count_rows_ref(want_ids, offsets, rare, len(walk.items))
+    assert torch.equal(ops.count_rows(ids, offsets, rare, len(walk.items)),
+                       want)
+    assert torch.equal(ids, want_ids)
+    # every third walked id a column, in reverse walk order, over 3 words
+    n_ids = len(walk.items)
+    cols = torch.full((n_ids,), -1, dtype=torch.int32)
+    chosen = torch.arange(n_ids - 1, -1, -3)[:96]
+    cols[chosen] = torch.arange(chosen.numel(), dtype=torch.int32)
+    cols = cols.to(dev)
+    words, wkeys = ops.pack_rows(ids, offsets, cols, 3)
+    rwords, rkeys = ref.pack_rows_ref(ids, offsets, cols, 3)
+    assert torch.equal(words, rwords) and torch.equal(wkeys, rkeys)
+    perm = torch.argsort(wkeys[1], stable=True)
+    perm = perm[torch.argsort(wkeys[0][perm], stable=True)]
+    head = ops.row_heads(words, perm)
+    assert torch.equal(head, ref.row_heads_ref(words, perm))
+    run = head.cumsum(0, dtype=torch.int32)
+    runs = int(run[-1])
+    got = ops.gather_rows(words, perm, run, head, rare, runs)
+    want = ref.gather_rows_ref(words, perm, run, head, rare, runs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_mra_encode_memory_follows_occurrences():
+    """Pass 1 on the card holds the occurrences, not a bit per walked item
+    and row: 200,000 rows over 400,000 walked items (a bit each would be
+    10 GB) encode within 256 MiB, to the numpy route's DB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    tx, y = bernoulli_db(200_000, 12, 0.3, 0.05, 7)
+    rows = [t + [2 * i + 100, 2 * i + 101] for i, t in enumerate(tx)]
+    dev = torch.device("cuda")
+    want, kept, _ = tm.mra_encode(rows, y, min_support=0.001,
+                                  streaming=False, device=CPU)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got, got_kept, _ = tm.mra_encode(rows, y, min_support=0.001,
+                                     streaming=False, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak < 256 * 2 ** 20, peak
+    assert got_kept == kept and len(kept) == 12
+    assert got.bits.cpu().numpy().tobytes() == want.bits.numpy().tobytes()
+    assert got.weights.cpu().numpy().tobytes() == \
+        want.weights.numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bernoulli", "census", "vocab_65"])
+def test_cuda_minority_report_takes_the_device_route(name):
+    """On the card a job's encode takes the device route, once a job, with
+    its spans in the order upload, scan, bitmap, dedup, and the job gives
+    the rule list and kept items of the JAX package's job and of the same
+    job on the CPU; with ``use_kernel=False`` it takes the host route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    rows, y, _ = _route_case(name)
+    params = dict(min_support={"bernoulli": 0.002, "census": 0.005,
+                               "vocab_65": 0.01}[name], min_confidence=0.05)
+    want = tm.minority_report_dense(rows, y, device=CPU, **params)
+    jwant = jm.minority_report_dense(rows, y, **params)
+    obs.reset()
+
+    def routes():
+        snap = obs.snapshot()
+        return [obs.counter_value(snap, "mra_encode_route_total", route=r)
+                for r in ("device", "host")]
+
+    before = routes()
+    got, spans = _traced(lambda: tm.minority_report_dense(
+        rows, y, device="cuda", **params))
+    assert routes() == [before[0] + 1, before[1]]
+    assert got.rules and [astuple(r) for r in got.rules] == [
+        astuple(r) for r in want.rules] == [astuple(r) for r in jwant.rules]
+    assert _typed(got.items_kept) == _typed(jwant.items_kept)
+    assert all(a is b for a, b in zip(got.items_kept, want.items_kept))
+    assert len(got.items_kept) == len(want.items_kept)
+    (enc,) = [s for s in spans if s.name == "mra.encode"]
+    assert enc.attrs["route"] == "device"
+    assert [s.name for s in spans if s.parent_id == enc.span_id] == [
+        "encode.upload", "mra.scan", "encode.bitmap", "encode.dedup"]
+    plain = tm.minority_report_dense(rows, y, device="cuda", use_kernel=False,
+                                     **params)
+    assert routes() == [before[0] + 1, before[1] + 1]
+    assert [astuple(r) for r in plain.rules] == [astuple(r) for r in
+                                                 want.rules]
 
 
 _GEN_ITEMS = {"ints": list(range(14)),
